@@ -1,0 +1,392 @@
+"""Multi-resolution hash-grid encoding, per-level path (mirror of
+``neusky_tpu/ops/hashgrid.py``).
+
+Tables are ``[L, F, T]``.  Each level's corner indices and weights are
+computed as ``[8, N]`` from positions ``xt`` [3, N]; the custom-gradient
+encodes are ``torch.autograd.Function``s whose only saved state is the
+positions (indices and weights are recomputed in backward) and whose table
+gradient goes through ``_scatter_ft`` — the one scatter dispatch: the plain
+version for a CPU tensor, kernel K1 for a CUDA tensor.
+
+uint32 arithmetic (the Instant-NGP prime hash and ``_cheap_hash_u``) is
+emulated in int64 with ``& 0xFFFFFFFF``; multiplies by constants ≥ 2^31 go
+through :func:`_mul_u32`, which splits the constant into 16-bit halves so no
+intermediate exceeds 2^49.  Results are bit-identical to the JAX uint32 ops.
+
+Not ported yet: the vectorized all-levels encode (``HashGridConfig.
+vectorized``, off by default).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from neusky_torch.ops.hashgrid_cuda import (
+    _sample_corner,
+    scatter_add_tablegrad_t,
+    take_interp_stoch,
+    take_interp_stoch_fp,
+)
+
+_PRIMES = (1, 2654435761, 805459861)
+_U32 = 0xFFFFFFFF
+
+
+def _mul_u32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """Low 32 bits of ``x · c`` for int64 ``x`` in [0, 2^32) and a Python
+    constant ``c`` in [0, 2^32): x·c_lo and x·c_hi stay below 2^48."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _U32
+
+
+def _take_ft(t2: torch.Tensor, idx: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """Axis-1 corner gather from a level table ``t2 [F, T]``."""
+    if bf16:
+        t2 = t2.to(torch.bfloat16)
+    return t2[:, idx]
+
+
+@dataclasses.dataclass(frozen=True)
+class HashGridConfig:
+    num_levels: int = 16
+    features_per_level: int = 2
+    log2_hashmap_size: int = 19
+    base_res: int = 16
+    max_res: int = 2048
+    use_hash: bool = True
+    smoothstep: bool = False
+    vectorized: bool = False
+    layout_barrier: bool = True
+    """No effect in the port (an XLA layout hint in the JAX package)."""
+    bf16_gather: bool = False
+
+    @property
+    def table_size(self) -> int:
+        return 1 << self.log2_hashmap_size
+
+    @property
+    def out_dim(self) -> int:
+        return self.num_levels * self.features_per_level
+
+    @property
+    def growth_factor(self) -> float:
+        if self.num_levels == 1:
+            return 1.0
+        return float(
+            np.exp((np.log(self.max_res) - np.log(self.base_res)) / (self.num_levels - 1))
+        )
+
+    def resolutions(self) -> Tuple[int, ...]:
+        g = self.growth_factor
+        return tuple(int(np.floor(self.base_res * (g**lvl))) for lvl in range(self.num_levels))
+
+
+_CORNERS = np.array([[i, j, k] for i in (0, 1) for j in (0, 1) for k in (0, 1)], np.int64)
+
+
+class HashGridEncoding:
+    """``init(generator, device) -> table``; ``__call__(table, x)``.
+    ``x`` lives in [0, 1]^3; the table is [L, F, T]."""
+
+    def __init__(self, config: HashGridConfig):
+        if config.vectorized:
+            raise NotImplementedError("the vectorized hash-grid encode is not ported yet")
+        self.config = config
+        res = config.resolutions()
+        self._resolutions = np.asarray(res, dtype=np.int64)
+        self._dense = np.array(
+            [(not config.use_hash) or ((r + 1) ** 3 <= config.table_size) for r in res]
+        )
+        self._corner_cache: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    @property
+    def out_dim(self) -> int:
+        return self.config.out_dim
+
+    def init(self, generator: Optional[torch.Generator], device, dtype=torch.float32) -> torch.Tensor:
+        """tcnn-style init: uniform in [-1e-4, 1e-4], shape [L, F, T]."""
+        c = self.config
+        shape = (c.num_levels, c.features_per_level, c.table_size)
+        u = torch.rand(shape, generator=generator, device=device, dtype=dtype)
+        return u * 2e-4 - 1e-4
+
+    def _corners(self, device):
+        if device not in self._corner_cache:
+            corners = torch.as_tensor(_CORNERS, device=device)  # [8, 3]
+            self._corner_cache[device] = (corners, corners[:, :, None] == 1)
+        return self._corner_cache[device]
+
+    def _level_iw(self, xt: torch.Tensor, lvl: int, need_dw: bool):
+        """One level's corner indices / weights: xt [3, N] →
+        (idx [8, N] int32, W [8, N], dW [3, 8, N] | None)."""
+        c = self.config
+        res = int(self._resolutions[lvl])
+        resf = float(res)
+        scaled = xt * resf
+        floor = torch.floor(scaled)
+        frac = scaled - floor
+        base = floor.to(torch.int64)
+        corners, cb = self._corners(xt.device)
+        coords = base[None, :, :] + corners[:, :, None]  # [8, 3, N]
+
+        if self._dense[lvl]:
+            rp1 = res + 1
+            cc = torch.clamp(coords, max=res)
+            idx = cc[:, 0] + cc[:, 1] * rp1 + cc[:, 2] * (rp1 * rp1)
+            idx = torch.clamp(idx, max=c.table_size - 1)
+        else:
+            cu = coords & _U32
+            hashed = (
+                _mul_u32(cu[:, 0], _PRIMES[0])
+                ^ _mul_u32(cu[:, 1], _PRIMES[1])
+                ^ _mul_u32(cu[:, 2], _PRIMES[2])
+            )
+            idx = hashed & (c.table_size - 1)
+        idx = idx.to(torch.int32)
+
+        if c.smoothstep:
+            u = frac * frac * (3.0 - 2.0 * frac)
+            du = 6.0 * frac * (1.0 - frac) * resf
+        else:
+            u = frac
+            du = None
+        omega = torch.where(cb, u[None], 1.0 - u[None])  # [8, 3, N]
+        W = omega[:, 0] * omega[:, 1] * omega[:, 2]
+        if not need_dw:
+            return idx, W, None
+        sign = torch.where(cb, 1.0, -1.0).to(xt.dtype)  # [8, 3, 1]
+        dWs = []
+        for a in range(3):
+            others = [b for b in range(3) if b != a]
+            prod_others = omega[:, others[0]] * omega[:, others[1]]
+            if du is None:
+                d = sign[:, a] * resf * prod_others
+            else:
+                d = sign[:, a] * du[None, a] * prod_others
+            dWs.append(d)
+        return idx, W, torch.stack(dWs, dim=0)
+
+    @staticmethod
+    def _assemble(per_level, n: int) -> torch.Tensor:
+        """L tensors [F, N] → [N, L*F] (feature-within-level order)."""
+        return torch.stack(per_level, dim=0).permute(2, 0, 1).reshape(n, -1)
+
+    def __call__(
+        self,
+        table: torch.Tensor,
+        x: torch.Tensor,
+        custom_take: bool = False,
+        stoch_u: Optional[torch.Tensor] = None,
+        stoch_salt: Optional[torch.Tensor] = None,
+        stoch_fwd: bool = False,
+        stoch_dxt: bool = False,
+    ) -> torch.Tensor:
+        """Encode positions x [N, 3] in [0, 1] → [N, L*F].  Same switches as
+        the JAX ``__call__``: ``stoch_u`` (proposal fields, [N] uniforms,
+        golden-ratio shifted per level) selects ``take_interp_stoch(_fp)``;
+        ``custom_take`` with ``stoch_salt`` the stochastic-corner table
+        gradient (``_level_encode_stoch``/``_sdxt``); ``custom_take`` alone
+        the exact custom-gradient encode; otherwise plain autograd."""
+        c = self.config
+        n = x.shape[0]
+        xt = x.t()
+        levels = table.unbind(0)
+        outs = []
+        for lvl in range(c.num_levels):
+            t2 = levels[lvl]
+            if stoch_u is not None:
+                idx, W, _ = self._level_iw(xt, lvl, need_dw=False)
+                u_l = torch.remainder(stoch_u + (0.6180339887 * lvl) % 1.0, 1.0)
+                take = take_interp_stoch_fp if stoch_fwd else take_interp_stoch
+                outs.append(take(t2, idx, W.to(table.dtype), u_l))
+            elif custom_take and stoch_salt is not None:
+                outs.append(_LevelEncodeStoch.apply(self, lvl, t2, xt, stoch_salt, stoch_dxt))
+            elif custom_take:
+                outs.append(_LevelEncode.apply(self, lvl, t2, xt))
+            else:
+                outs.append(_interp(self, lvl, t2, xt))
+        return self._assemble(outs, n)
+
+    def encode_with_dx(
+        self,
+        table: torch.Tensor,
+        x: torch.Tensor,
+        custom_take: bool = True,
+        stoch_salt: Optional[torch.Tensor] = None,
+    ):
+        """Encode + closed-form position derivative:
+        x [N, 3] → (out [N, L*F], dout_dx [N, 3, L*F]).  With ``stoch_salt``
+        the table gradient samples one uniform corner per (sample, level)
+        (``_level_encode_dx_stoch``); forward and d/dx stay exact."""
+        c = self.config
+        n = x.shape[0]
+        xt = x.t()
+        levels = table.unbind(0)
+        outs = []
+        douts = [[], [], []]
+        for lvl in range(c.num_levels):
+            t2 = levels[lvl]
+            if custom_take:
+                if stoch_salt is not None:
+                    o, *ds = _LevelEncodeDxStoch.apply(self, lvl, t2, xt, stoch_salt)
+                else:
+                    o, *ds = _LevelEncodeDx.apply(self, lvl, t2, xt)
+            else:
+                o, *ds = _interp_with_dx(self, lvl, t2, xt, c.bf16_gather)
+            outs.append(o)
+            for a in range(3):
+                douts[a].append(ds[a])
+        out = self._assemble(outs, n)
+        dout = torch.stack([self._assemble(d, n) for d in douts], dim=1)
+        return out, dout
+
+
+def _scatter_ft(rows: torch.Tensor, vals: torch.Tensor, t: int) -> torch.Tensor:
+    """rows [M], vals [F, M] → [F, T] gradient table.  The one scatter
+    dispatch: plain ``index_add_`` for a CPU tensor, K1 for a CUDA tensor."""
+    return scatter_add_tablegrad_t(rows, vals, t)
+
+
+def _cheap_hash_u(n: int, lvl: int, salt: torch.Tensor) -> torch.Tensor:
+    """[N] uniforms in [0, 1) from (lane index, level, salt): the JAX
+    Wang-style uint32 mix, bit for bit.  ``salt`` is an int64 tensor (or
+    int) holding a uint32 value."""
+    device = salt.device if isinstance(salt, torch.Tensor) else None
+    x = torch.arange(n, dtype=torch.int64, device=device)
+    x = (_mul_u32(x, 0x9E3779B9) + ((lvl * 0x85EBCA6B) & _U32)) & _U32
+    x = x ^ (salt & _U32)
+    x = _mul_u32(x ^ (x >> 16), 0x7FEB352D)
+    x = _mul_u32(x ^ (x >> 15), 0x846CA68B)
+    x = x ^ (x >> 16)
+    return x.to(torch.float32) * (1.0 / 4294967296.0)
+
+
+def _interp(enc, lvl, t2, xt):
+    """One level's trilinear lookup: t2 [F, T], xt [3, N] → [F, N]."""
+    idx, W, _ = enc._level_iw(xt, lvl, need_dw=False)
+    feats = _take_ft(t2, idx, enc.config.bf16_gather)
+    return torch.sum(W.to(feats.dtype)[None] * feats, dim=1).to(t2.dtype)
+
+
+def _interp_with_dx(enc, lvl, t2, xt, bf16: bool):
+    """One level's lookup and its d/dx → (out, d0, d1, d2), each [F, N]."""
+    idx, W, dW = enc._level_iw(xt, lvl, need_dw=True)
+    feats = _take_ft(t2, idx, bf16)
+    w, dw = W.to(feats.dtype), dW.to(feats.dtype)
+    out = torch.sum(w[None] * feats, dim=1).to(t2.dtype)
+    return (out,) + tuple(torch.sum(dw[a][None] * feats, dim=1).to(t2.dtype) for a in range(3))
+
+
+def _exact_dxt(enc, lvl, t2, xt, idx, dW, g):
+    """Exact position cotangent Σ_c dW[a,c,n] · Σ_f g[f,n] · feats[f,c,n]."""
+    feats = _take_ft(t2, idx, enc.config.bf16_gather)
+    gf = torch.sum(g[:, None, :] * feats.to(g.dtype), dim=0)  # [8, N]
+    return torch.sum(dW.to(g.dtype) * gf[None], dim=1)  # [3, N]
+
+
+class _LevelEncode(torch.autograd.Function):
+    """One level's interpolated encode: t2 [F, T], xt [3, N] → [F, N];
+    exact table gradient and TRUE position cotangent."""
+
+    @staticmethod
+    def forward(ctx, enc, lvl, t2, xt):
+        ctx.enc, ctx.lvl = enc, lvl
+        ctx.save_for_backward(t2, xt)
+        return _interp(enc, lvl, t2, xt)
+
+    @staticmethod
+    def backward(ctx, g):
+        t2, xt = ctx.saved_tensors
+        enc, lvl = ctx.enc, ctx.lvl
+        idx, W, dW = enc._level_iw(xt, lvl, need_dw=True)
+        w_upd = W.to(g.dtype)[None] * g[:, None, :]  # [F, 8, N]
+        d = _scatter_ft(idx.reshape(-1), w_upd.reshape(g.shape[0], -1), t2.shape[1])
+        dxt = _exact_dxt(enc, lvl, t2, xt, idx, dW, g) if ctx.needs_input_grad[3] else None
+        return None, None, d, dxt
+
+
+class _LevelEncodeDx(torch.autograd.Function):
+    """Encode + analytic d/dx → (out, d0, d1, d2), each [F, N]; exact
+    table gradient from all four cotangents, zero position cotangent."""
+
+    @staticmethod
+    def forward(ctx, enc, lvl, t2, xt):
+        ctx.enc, ctx.lvl, ctx.table_size = enc, lvl, t2.shape[1]
+        ctx.save_for_backward(xt)
+        return _interp_with_dx(enc, lvl, t2, xt, enc.config.bf16_gather)
+
+    @staticmethod
+    def backward(ctx, g_out, g0, g1, g2):
+        (xt,) = ctx.saved_tensors
+        idx, W, dW = ctx.enc._level_iw(xt, ctx.lvl, need_dw=True)
+        upd = W.to(g_out.dtype)[None] * g_out[:, None, :]
+        dw = dW.to(g_out.dtype)
+        for a, ga in enumerate((g0, g1, g2)):
+            upd = upd + dw[a][None] * ga[:, None, :]
+        d = _scatter_ft(idx.reshape(-1), upd.reshape(g_out.shape[0], -1), ctx.table_size)
+        return None, None, d, None
+
+
+class _LevelEncodeStoch(torch.autograd.Function):
+    """= ``_LevelEncode`` forward; the table gradient scatters ONE corner
+    per sample drawn ~ Categorical(W) with value g·ΣW.  The position
+    cotangent stays exact (``_level_encode_stoch``) or, with
+    ``sampled_dxt``, samples one uniform corner too (×8 weight, independent
+    hash stream lvl + 131: ``_level_encode_stoch_sdxt``)."""
+
+    @staticmethod
+    def forward(ctx, enc, lvl, t2, xt, salt, sampled_dxt):
+        ctx.enc, ctx.lvl, ctx.sampled_dxt = enc, lvl, sampled_dxt
+        ctx.save_for_backward(t2, xt, salt)
+        return _interp(enc, lvl, t2, xt)
+
+    @staticmethod
+    def backward(ctx, g):
+        t2, xt, salt = ctx.saved_tensors
+        enc, lvl = ctx.enc, ctx.lvl
+        idx, W, dW = enc._level_iw(xt, lvl, need_dw=True)
+        n = xt.shape[1]
+        rows, wsum = _sample_corner(idx, W.to(g.dtype), _cheap_hash_u(n, lvl, salt))
+        d = _scatter_ft(rows, g * wsum[None, :], t2.shape[1])
+        dxt = None
+        if ctx.needs_input_grad[3] and not ctx.sampled_dxt:
+            dxt = _exact_dxt(enc, lvl, t2, xt, idx, dW, g)
+        elif ctx.needs_input_grad[3]:
+            u2 = _cheap_hash_u(n, lvl + 131, salt)
+            c = torch.clamp((u2 * 8.0).to(torch.int64), max=7)  # [N]
+            rows2 = torch.gather(idx, 0, c[None, :])[0]
+            feats_c = _take_ft(t2, rows2, enc.config.bf16_gather).to(g.dtype)  # [F, N]
+            gf = torch.sum(g * feats_c, dim=0)
+            dw_c = torch.gather(dW.to(g.dtype), 1, c[None, None, :].expand(3, 1, n))[:, 0, :]
+            dxt = 8.0 * dw_c * gf[None]
+        return None, None, d, dxt, None, None
+
+
+class _LevelEncodeDxStoch(torch.autograd.Function):
+    """= ``_LevelEncodeDx`` forward; the backward samples ONE corner
+    uniformly (p = 1/8, value ×8): the combined cotangent mixes signs, so
+    uniform — not importance — sampling keeps it unbiased."""
+
+    @staticmethod
+    def forward(ctx, enc, lvl, t2, xt, salt):
+        ctx.enc, ctx.lvl, ctx.table_size = enc, lvl, t2.shape[1]
+        ctx.save_for_backward(xt, salt)
+        # float32 gather whatever bf16_gather says, as in the JAX op
+        return _interp_with_dx(enc, lvl, t2, xt, bf16=False)
+
+    @staticmethod
+    def backward(ctx, g_out, g0, g1, g2):
+        xt, salt = ctx.saved_tensors
+        idx, W, dW = ctx.enc._level_iw(xt, ctx.lvl, need_dw=True)
+        u = _cheap_hash_u(xt.shape[1], ctx.lvl, salt)
+        c = torch.clamp((u * 8.0).to(torch.int64), max=7)[None, :]  # [1, N]
+        rows = torch.gather(idx, 0, c)[0]
+        upd = torch.gather(W.to(g_out.dtype), 0, c) * g_out  # [F, N]
+        for a, ga in enumerate((g0, g1, g2)):
+            upd = upd + torch.gather(dW[a].to(g_out.dtype), 0, c) * ga
+        d = _scatter_ft(rows, 8.0 * upd, ctx.table_size)
+        return None, None, d, None, None

@@ -1,0 +1,209 @@
+"""K1 — the hash-table gradient scatter-add — and the custom-gradient
+lookups of the proposal fields.
+
+Counterpart of ``neusky_tpu/ops/hashgrid_pallas.py``.  The TPU kernel
+``_scatter_kernel`` becomes the hand-written CUDA kernel in
+``csrc/hashgrid_scatter.cu`` (see its header for the design and its bound),
+built with ``nvcc`` for ``sm_90a`` at first use and bound with ctypes.
+
+Dispatch rule: a CPU tensor takes the plain version (``index_add_`` on a
+zero table); a CUDA tensor launches the kernel or raises — there is no
+fallback.  ``launches`` counts kernel launches so a run can show that its
+main path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Optional, Tuple
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "hashgrid_scatter.cu"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+KERNEL_NAME = "hashgrid_scatter_add"
+launches: Dict[str, int] = {KERNEL_NAME: 0}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    return str(Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc")
+
+
+def library_path() -> Path:
+    """Build output, keyed by the source's hash so an edit rebuilds."""
+    tag = hashlib.sha1(SOURCE.read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"libhashgrid_scatter_{tag}.so"
+
+
+def build(verbose: bool = False) -> Tuple[Path, str]:
+    """Compile K1 (no-op if the library for this source exists).  Returns
+    (library path, compiler messages — ``-Xptxas -v`` register/spill
+    report when ``verbose``)."""
+    out = library_path()
+    if out.exists():
+        return out, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+           "-o", str(tmp), str(SOURCE)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out, proc.stderr
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        path, _ = build()
+        lib = ctypes.CDLL(str(path))
+        fn = lib.hashgrid_scatter_add_f2
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+# ---------------------------------------------------------------------------
+# the kernel's wrapper and its plain version
+
+
+def scatter_add_plain(idx: torch.Tensor, updates: torch.Tensor, table_size: int) -> torch.Tensor:
+    """Plain version: Σ-scatter of ``updates`` [M, 2] at rows ``idx`` [M]
+    into a zero [T, 2] table (duplicates add)."""
+    out = torch.zeros((table_size, updates.shape[1]), dtype=updates.dtype, device=updates.device)
+    return out.index_add_(0, idx, updates)
+
+
+def scatter_add_plain_t(idx: torch.Tensor, updates_ft: torch.Tensor, table_size: int) -> torch.Tensor:
+    """Plain version of the plane-major layout: [F, M] → [F, T]."""
+    return scatter_add_plain(idx, updates_ft.t(), table_size).t().contiguous()
+
+
+def _launch(idx: torch.Tensor, upd: torch.Tensor, table_size: int, transposed: bool) -> torch.Tensor:
+    if idx.dtype != torch.int32 or upd.dtype != torch.float32:
+        raise TypeError(f"K1 takes int32 indices and float32 values, got {idx.dtype} and {upd.dtype}")
+    m = idx.shape[0]
+    want = (2, m) if transposed else (m, 2)
+    if idx.dim() != 1 or tuple(upd.shape) != want:
+        raise ValueError(f"K1 shapes: idx [M], updates {list(want)}; got {list(idx.shape)}, {list(upd.shape)}")
+    if not (idx.is_contiguous() and upd.is_contiguous()):
+        raise ValueError("K1 takes contiguous tensors")
+    if idx.device.type != "cuda" or upd.device.type != "cuda" or idx.device != upd.device:
+        raise ValueError(f"K1 needs both tensors on one CUDA device, got {idx.device} and {upd.device}")
+    shape = (2, table_size) if transposed else (table_size, 2)
+    out = torch.zeros(shape, dtype=torch.float32, device=upd.device)
+    if m == 0:
+        return out
+    # (row stride, feature stride) of updates and output
+    us = (1, m) if transposed else (2, 1)
+    os_ = (1, table_size) if transposed else (2, 1)
+    lib = _load()
+    stream = torch.cuda.current_stream(upd.device).cuda_stream
+    with torch.cuda.device(upd.device):
+        err = lib.hashgrid_scatter_add_f2(
+            idx.data_ptr(), upd.data_ptr(), us[0], us[1],
+            out.data_ptr(), os_[0], os_[1], m, table_size, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"K1 launch failed: cudaError {err}")
+    launches[KERNEL_NAME] += 1
+    return out
+
+
+def scatter_add_tablegrad(idx: torch.Tensor, updates: torch.Tensor, table_size: int) -> torch.Tensor:
+    """``updates`` [M, 2] at rows ``idx`` [M] → [T, 2] gradient table."""
+    if updates.device.type == "cpu" and idx.device.type == "cpu":
+        return scatter_add_plain(idx, updates, table_size)
+    return _launch(idx, updates, table_size, transposed=False)
+
+
+def scatter_add_tablegrad_t(idx: torch.Tensor, updates_ft: torch.Tensor, table_size: int) -> torch.Tensor:
+    """Plane-major: ``updates_ft`` [2, M] at rows ``idx`` [M] → [2, T]."""
+    if updates_ft.device.type == "cpu" and idx.device.type == "cpu":
+        return scatter_add_plain_t(idx, updates_ft, table_size)
+    return _launch(idx, updates_ft.contiguous(), table_size, transposed=True)
+
+
+# ---------------------------------------------------------------------------
+# stochastic-corner interpolated lookups (proposal fields)
+
+
+def _sample_corner(idx: torch.Tensor, w: torch.Tensor, u: torch.Tensor):
+    """corner ~ Categorical(w/Σw) per sample by inverse CDF →
+    (rows [N], Σw [N]).  idx, w: [8, N]; u: [N] uniforms."""
+    wsum = torch.sum(w, dim=0)
+    cdf = torch.cumsum(w, dim=0)
+    c_star = torch.sum(cdf < (u * wsum)[None, :], dim=0)
+    c_star = torch.clamp(c_star, 0, w.shape[0] - 1)
+    rows = torch.gather(idx, 0, c_star[None, :])[0]
+    return rows, wsum
+
+
+class _TakeInterpStoch(torch.autograd.Function):
+    """Exact interpolated forward; backward scatters ``g·Σw`` to ONE corner
+    drawn from Categorical(w/Σw).  The ``w`` cotangent is zero (positions
+    carry no gradient where this is used)."""
+
+    @staticmethod
+    def forward(ctx, t2, idx, w, u):
+        ctx.save_for_backward(idx, w, u)
+        ctx.table_size = t2.shape[1]
+        return torch.sum(w[None] * t2[:, idx], dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, w, u = ctx.saved_tensors
+        rows, wsum = _sample_corner(idx, w, u)
+        dt = scatter_add_tablegrad_t(rows, g * wsum[None, :], ctx.table_size)
+        return dt, None, None, None
+
+
+class _TakeInterpStochFp(torch.autograd.Function):
+    """ONE importance-sampled corner in the forward AND the backward:
+    out = Σw · t2[:, idx_c*]; the backward scatters ``g·Σw`` to the same
+    corner.  Unbiased dither of the trilinear lookup."""
+
+    @staticmethod
+    def forward(ctx, t2, idx, w, u):
+        rows, wsum = _sample_corner(idx, w, u)
+        ctx.save_for_backward(rows, wsum)
+        ctx.table_size = t2.shape[1]
+        return t2[:, rows] * wsum[None].to(t2.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, wsum = ctx.saved_tensors
+        dt = scatter_add_tablegrad_t(rows, g * wsum[None, :].to(g.dtype), ctx.table_size)
+        return dt, None, None, None
+
+
+def take_interp_stoch(t2, idx, w, u):
+    """t2 [F, T]; idx, w [8, N]; u [N] → [F, N] (exact forward)."""
+    return _TakeInterpStoch.apply(t2, idx, w, u)
+
+
+def take_interp_stoch_fp(t2, idx, w, u):
+    """t2 [F, T]; idx, w [8, N]; u [N] → [F, N] (sampled forward)."""
+    return _TakeInterpStochFp.apply(t2, idx, w, u)

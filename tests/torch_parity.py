@@ -1,0 +1,99 @@
+"""Shared helpers for the ``test_torch_*`` parity tests: JAX params and
+configs → the port's, and the JAX key tree of one scene training step →
+the port's explicit draws."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from neusky_torch.convert import convert_params
+from neusky_torch.engine import optimizers as t_opt
+from neusky_torch.fields import density_field as t_df
+from neusky_torch.fields import reni as t_reni
+from neusky_torch.fields import sdf_albedo as t_sdf
+from neusky_torch.models import neusky as t_neusky
+from neusky_torch.models import pipeline as t_pipe
+from neusky_torch.ops import hashgrid as t_hash
+from neusky_torch.sampling import proposal as t_prop
+
+TORCH_CONFIGS = {
+    cls.__name__: cls
+    for cls in (
+        t_hash.HashGridConfig, t_df.DensityFieldConfig, t_sdf.SDFAlbedoFieldConfig,
+        t_reni.RENIFieldConfig, t_prop.ProposalSamplerConfig, t_neusky.LossInclusions,
+        t_neusky.NeuSkyModelConfig, t_pipe.PipelineConfig, t_opt.OptimizerGroupConfig,
+    )
+}
+
+
+def to_torch_config(obj):
+    """A JAX config dataclass (recursively) → the port's class of the same
+    name, field for field."""
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        cls = TORCH_CONFIGS[type(obj).__name__]
+        return cls(**{f.name: to_torch_config(getattr(obj, f.name)) for f in dataclasses.fields(obj)})
+    if isinstance(obj, tuple):
+        return tuple(to_torch_config(x) for x in obj)
+    return obj
+
+
+def flat_jax(tree, prefix=""):
+    """Nested dict of arrays → ``{"a/b/c": np.ndarray}``."""
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict) or hasattr(v, "items"):
+            out.update(flat_jax(v, path))
+        else:
+            out[path] = np.asarray(v)
+    return out
+
+
+def jax_to_torch_params(params, device="cpu"):
+    return convert_params(flat_jax(params), device=device)
+
+
+def u32_tensor(x) -> torch.Tensor:
+    return torch.tensor(int(np.asarray(x).astype(np.uint32)), dtype=torch.int64)
+
+
+def jax_scene_draws(cfg_j, rng, n_rays: int) -> dict:
+    """The draws that ``neusky_tpu`` ``train_loss_fn(rng)`` makes in its
+    scene half, re-derived from the same key tree:
+    train_loss_fn → split(2)[0] → forward split(4) → proposal split(3),
+    density_fns split(2) of k_stoch, ``_field_salt(k_stoch)``, the light
+    rotation normal(k_illum, 4) and ``_hashgrid_density_samples(k_grid)``."""
+    k_scene, _ = jax.random.split(rng)
+    k_prop, k_illum, k_grid, k_stoch = jax.random.split(k_scene, 4)
+    prop = cfg_j.proposal
+    nit = len(prop.num_proposal_samples)
+    pkeys = jax.random.split(k_prop, nit + 1)
+    skeys = jax.random.split(k_stoch, len(cfg_j.proposal_fields))
+    t = lambda a: torch.from_numpy(np.asarray(a))
+    draws = {
+        "proposal_jitters": [t(jax.random.uniform(pkeys[i], (n_rays, 1))) for i in range(nit + 1)],
+        "proposal_stoch_u": [
+            t(jax.random.uniform(skeys[i], (n_rays * s,)))
+            for i, s in enumerate(prop.num_proposal_samples)
+        ],
+        "sdf_salt": u32_tensor(jax.random.bits(k_stoch, dtype=jnp.uint32)),
+        "light_rotation": t(jax.random.normal(k_illum, (4,))),
+    }
+    res = cfg_j.losses.hashgrid_density_grid_resolution
+    k1, k2 = jax.random.split(k_grid)
+    draws["grid_jitter"] = t(jax.random.uniform(k1, (res**3, 3)))
+    draws["grid_dirs"] = t(jax.random.normal(k2, (res**3, 3)))
+    draws["grid_salt"] = u32_tensor(jax.random.bits(jax.random.split(k2)[0], dtype=jnp.uint32))
+    return draws
+
+
+def max_rel_err(a, b) -> float:
+    """max |a − b| / max(max |b|, tiny) — one scale per array."""
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
