@@ -8,16 +8,20 @@ Phases (any failure exits non-zero; no phase's failure is passed over):
    limit); build every kernel from ``neusky_torch/csrc`` with ``nvcc``
    (``sm_90a``), all sources at once;
 2. each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it, with CUDA-event timings of the kernel,
-   the plain version and one library call, and the bound;
+   shapes the main path gives it (K1: all levels of each of the four
+   encodes, indices from ``_all_iw``), with CUDA-event timings of the
+   kernel, the plain version and one library call, and the bound;
 3. the port's scene training step on the card against the same step on
    the CPU (plain versions), on a small input;
 4. the main path: the canonical scene configuration (1024 rays, proposal
    (256, 96) → 48 samples, SDF hash 16 × 2 × 2^19, 2×256 MLPs, RENI latent
    100 with 6 attention layers, 492 light directions, the converted frozen
-   prior) trained a few steps through the port's ``Trainer``; each
-   kernel's launch count is zeroed just before and read just after; then
-   one more step under ``torch.profiler`` (device time by kernel);
+   prior) trained a few steps through the port's ``Trainer`` (K1 once
+   per encode: 4 launches a step); each kernel's launch count is zeroed
+   just before and read just after; one more step keeps the inputs K1
+   takes there, and K1 is held against its plain version and timed on
+   them; then one more step under ``torch.profiler`` (device time by
+   kernel);
 5. one JSON line listing every kernel, the card line, and the final
    ``{"ok": true, "device": ...}`` line.
 """
@@ -43,7 +47,8 @@ from neusky_torch.engine.checkpoint import prior_asset_path
 from neusky_torch.engine.trainer import Trainer, TrainerConfig
 from neusky_torch.models.neusky import NeuSkyModel
 from neusky_torch.models.pipeline import PipelineConfig, train_loss_fn
-from neusky_torch.ops import hashgrid_cuda as k1
+from neusky_torch.ops import hashgrid, hashgrid_cuda as k1
+from neusky_torch.ops.hashgrid import HashGridEncoding
 from neusky_torch.tree import tree_items, tree_map
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -76,7 +81,7 @@ def nvidia_smi_line() -> str:
 # phase 1: build
 
 
-KERNEL_BUILDS = {"hashgrid_scatter_add": k1.build}
+KERNEL_BUILDS = {k1.KERNEL_NAME: k1.build}
 
 
 def build_all():
@@ -115,72 +120,123 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, hold_card: bool = True) -> flo
     return start.elapsed_time(end) / iters
 
 
-def k1_bound_ms(m: int, t: int):
+def k1_bound_ms(levels: int, m: int, t: int):
     """Least time for the function: read idx (4 B) and two fp32 values per
-    update, write the 2T fp32 table once; 2 fp32 adds per update."""
-    bytes_ms = (12.0 * m + 8.0 * t) / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2.0 * m / FP32_OPS_PER_S * 1e3
+    update, write the L×2T fp32 output once; 2 fp32 adds per update."""
+    bytes_ms = (12.0 * levels * m + 8.0 * levels * t) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2.0 * levels * m / FP32_OPS_PER_S * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
 def k1_cases(model_cfg, n_rays: int):
-    """The main path's K1 call sites: (name, M, T, launches per step, index
-    range, layout).  Plus a heavy-duplicate case (every index in the dense
-    17^3-row level 0) and a row-major case with M not a multiple of the
-    256-thread block."""
-    sites = []
+    """The main path's K1 call sites, one launch per encode: (name, hash
+    config, M, launches per step).  Plus two L = 1 cases: the SDF's dense
+    level 0 taking heavy duplicates, and the row-major layout with M not a
+    multiple of the block."""
     prop = model_cfg.proposal
-    for i, pf in enumerate(model_cfg.proposal_fields):
-        m = n_rays * prop.num_proposal_samples[i]
-        sites.append((f"proposal_field_{i}", m, pf.hash.table_size, pf.hash.num_levels, None, True))
+    sites = [(f"proposal_field_{i}", pf.hash, n_rays * prop.num_proposal_samples[i], 1)
+             for i, pf in enumerate(model_cfg.proposal_fields)]
     sh = model_cfg.sdf_field.hash
-    sites.append(("sdf_field_outputs", n_rays * prop.num_final_samples, sh.table_size, sh.num_levels, None, True))
+    sites.append(("sdf_field_outputs", sh, n_rays * prop.num_final_samples, 1))
     if model_cfg.losses.hashgrid_density:
-        r3 = model_cfg.losses.hashgrid_density_grid_resolution ** 3
-        sites.append(("density_grid_sdf", r3, sh.table_size, sh.num_levels, None, True))
-    extra = [
-        ("sdf_dense_level0_heavy_duplicates", n_rays * prop.num_final_samples, sh.table_size, 0, 17**3, True),
-        ("row_major_odd_m", n_rays * prop.num_proposal_samples[0] + 77, model_cfg.proposal_fields[0].hash.table_size,
-         0, None, False),
-    ]
+        sites.append(("density_grid_sdf", sh, model_cfg.losses.hashgrid_density_grid_resolution ** 3, 1))
+    extra = [("sdf_dense_level0_heavy_duplicates", sh, n_rays * prop.num_final_samples, 0),
+             ("row_major_odd_m", model_cfg.proposal_fields[0].hash, n_rays * prop.num_proposal_samples[0] + 77, 0)]
     return sites, extra
+
+
+def k1_inputs(name, hash_cfg, m, g):
+    """(rows [L, M], vals [L, 2, M], T) on the card.  A site's rows come
+    from ``_all_iw`` on random positions, one random corner per (level,
+    sample) as the stochastic backwards pick, so the dense levels see their
+    real number of rows (the main path's ray order is not reproduced: the
+    captured main-path inputs of phase 4 carry it)."""
+    t = hash_cfg.table_size
+    if name == "sdf_dense_level0_heavy_duplicates":
+        r0 = hash_cfg.base_res
+        rows = torch.randint(0, (r0 + 1) ** 3, (1, m), generator=g, device="cuda", dtype=torch.int32)
+    elif name == "row_major_odd_m":
+        rows = torch.randint(0, t, (1, m), generator=g, device="cuda", dtype=torch.int32)
+    else:
+        x = torch.rand((3, m), generator=g, device="cuda")
+        idx, _, _ = HashGridEncoding(hash_cfg)._all_iw(x, need_dw=False)
+        c = torch.randint(0, 8, (hash_cfg.num_levels, 1, m), generator=g, device="cuda")
+        rows = torch.gather(idx, 1, c)[:, 0].contiguous()
+    vals = torch.randn((rows.shape[0], 2, m), generator=g, device="cuda")
+    return rows, vals, t
+
+
+def measure_k1(name, rows, vals, t, per_step, row_major=False):
+    """K1 on one input against its plain version, then CUDA-event times of
+    K1, the plain version and one ``index_add_`` on the flat output."""
+    levels = rows.shape[0]
+    if row_major:
+        idx, upd = rows[0], vals[0].t().contiguous()  # [M], [M, 2]
+        kern = lambda: k1.scatter_add_tablegrad(idx, upd, t)
+        plain = lambda: k1.scatter_add_plain(idx, upd, t)
+        flat = (idx.long()[:, None] * 2 + torch.arange(2, device="cuda")).reshape(-1)
+        lib_vals = upd.reshape(-1)
+    else:
+        kern = lambda: k1.scatter_levels(rows, vals, t)
+        plain = lambda: k1.scatter_levels_plain(rows, vals, t)
+        flat = ((torch.arange(levels * 2, device="cuda").reshape(levels, 2, 1) * t)
+                + rows.long()[:, None, :]).reshape(-1)
+        lib_vals = vals.reshape(-1)
+    library = lambda: torch.zeros(levels * 2 * t, device="cuda").index_add_(0, flat, lib_vals)
+    out = kern()
+    torch.cuda.synchronize()
+    ref = plain()
+    # atomics and the warp's run sums reorder each row's sum: tolerance 1e-4
+    # (the Pallas test's) up to 64 updates a row, growing linearly beyond
+    m = rows.shape[1]
+    max_dup = max(int(torch.bincount(rows[l].long(), minlength=t).max()) for l in range(levels))
+    atol = 1e-4 * max(1.0, max_dup / 64.0)
+    err = float((out - ref).abs().max())
+    if not (math.isfinite(err) and err <= atol):
+        raise AssertionError(f"K1 {name}: max |kernel - plain| = {err} > {atol}")
+    bound, by = k1_bound_ms(levels, m, t)
+    row = dict(case=name, L=levels, M=m, T=t, layout="[M,2]->[T,2]" if row_major else "[L,2,M]->[L,2,T]",
+               launches_per_step=per_step, max_dup=max_dup, max_abs_err=err, atol=atol,
+               ms=time_ms(kern), plain_ms=time_ms(plain), library_ms=time_ms(library),
+               bound_ms=bound, bound_by=by, call_ms=time_ms(kern, hold_card=False))
+    log("k1 case " + json.dumps(row))
+    return row
 
 
 def check_k1(model_cfg, n_rays: int):
     sites, extra = k1_cases(model_cfg, n_rays)
     g = torch.Generator(device="cuda").manual_seed(0)
-    rows = []
-    for name, m, t, per_step, rng_hi, transposed in sites + extra:
-        hi = t if rng_hi is None else rng_hi
-        idx = torch.randint(0, hi, (m,), generator=g, device="cuda", dtype=torch.int32)
-        shape = (2, m) if transposed else (m, 2)
-        upd = torch.randn(shape, generator=g, device="cuda")
-        if transposed:
-            kern = lambda: k1.scatter_add_tablegrad_t(idx, upd, t)
-            plain = lambda: k1.scatter_add_plain_t(idx, upd, t)
-            library = lambda: torch.zeros((2, t), device="cuda").index_add_(1, idx, upd)
-        else:
-            kern = lambda: k1.scatter_add_tablegrad(idx, upd, t)
-            plain = lambda: k1.scatter_add_plain(idx, upd, t)
-            library = lambda: torch.zeros((t, 2), device="cuda").index_add_(0, idx, upd)
-        out = kern()
+    return [measure_k1(name, *k1_inputs(name, hash_cfg, m, g), per_step, row_major=name == "row_major_odd_m")
+            for name, hash_cfg, m, per_step in sites + extra]
+
+
+def capture_k1_inputs(trainer):
+    """One more training step with the encodes' scatter dispatch wrapped, to
+    keep what K1 takes on the main path: [(rows, vals, T)], call order."""
+    seen = []
+    dispatch = hashgrid.scatter_levels
+
+    def keep(rows, vals, t):
+        seen.append((rows.clone(), vals.contiguous().clone(), t))
+        return dispatch(rows, vals, t)
+
+    hashgrid.scatter_levels = keep
+    try:
+        trainer.run(1)
         torch.cuda.synchronize()
-        ref = plain()
-        # atomics reorder each row's sum: tolerance 1e-4 (the Pallas test's)
-        # up to 64 updates a row, growing linearly with the updates a row takes
-        max_dup = int(torch.bincount(idx.long(), minlength=t).max())
-        atol = 1e-4 * max(1.0, max_dup / 64.0)
-        err = float((out - ref).abs().max())
-        if not (math.isfinite(err) and err <= atol):
-            raise AssertionError(f"K1 {name}: max |kernel - plain| = {err} > {atol}")
-        bound, by = k1_bound_ms(m, t)
-        row = dict(case=name, M=m, T=t, layout="[2,M]->[2,T]" if transposed else "[M,2]->[T,2]",
-                   launches_per_step=per_step, max_dup=max_dup, max_abs_err=err, atol=atol,
-                   ms=time_ms(kern), plain_ms=time_ms(plain), library_ms=time_ms(library),
-                   bound_ms=bound, bound_by=by, call_ms=time_ms(kern, hold_card=False))
-        log("k1 case " + json.dumps(row))
-        rows.append(row)
-    return rows
+    finally:
+        hashgrid.scatter_levels = dispatch
+    return seen
+
+
+def check_k1_main_path_inputs(model_cfg, n_rays: int, captured):
+    """K1 against its plain version and timed on the inputs one main-path
+    step gave it (ray-ordered samples: runs of equal coarse rows)."""
+    sites, _ = k1_cases(model_cfg, n_rays)
+    names = {(h.num_levels, m): name for name, h, m, _ in sites}
+    check(sorted(names) == sorted((r.shape[0], r.shape[1]) for r, _, _ in captured),
+          f"captured K1 inputs {[tuple(r.shape) for r, _, _ in captured]} are not the sites {sorted(names)}")
+    return [measure_k1(names[tuple(rows.shape)] + "/main_path", rows, vals, t, 1) for rows, vals, t in captured]
 
 
 # ---------------------------------------------------------------------------
@@ -196,11 +252,9 @@ def scene_config(**kw):
 
 
 def expected_launches_per_step(cfg) -> int:
-    n = sum(pf.hash.num_levels for pf in cfg.proposal_fields if pf.stochastic_table_grad)
-    n += cfg.sdf_field.hash.num_levels  # field_outputs
-    if cfg.losses.hashgrid_density:
-        n += cfg.sdf_field.hash.num_levels  # density-grid SDF query
-    return n
+    """K1 launches once per hash-grid encode: each proposal field, the SDF
+    ``field_outputs`` and the density-grid SDF query."""
+    return len(cfg.proposal_fields) + 1 + int(cfg.losses.hashgrid_density)
 
 
 # ---------------------------------------------------------------------------
@@ -318,13 +372,14 @@ def run_main_path(card: str):
         if k.startswith("illumination_decoder/") and not torch.equal(start[k], v):
             raise AssertionError(f"frozen {k} changed")
     log("trainable groups changed: " + ", ".join(trainer.optimizer.group_names))
+    captured = capture_k1_inputs(trainer)
     profile_step(trainer, float(np.mean(steps[1:])), card)
-    return main_launches
+    return main_launches, captured
 
 
 # device-op name fragments → kind, first match wins
 KERNEL_KINDS = (
-    ("K1", ("scatter_add_f2_kernel",)),
+    ("K1", ("scatter_levels_kernel",)),
     ("matmul", ("gemm", "gemv", "Kernel2", "xmma")),
     ("layer_norm", ("layer_norm",)),
     ("gather/scatter", ("index", "gather", "scatter")),
@@ -343,22 +398,28 @@ def profile_step(trainer: Trainer, steady_s: float, card: str, top: int = 15):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         trainer.run(1)
         torch.cuda.synchronize()
-    by_name = {}
+    by_name, longest = {}, {}
     for e in prof.events():
         # device-side user annotations (the optimizer's range) are spans
         # over kernels, not work of their own
         if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
             n, us = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+            longest[e.name] = max(longest.get(e.name, 0.0), e.time_range.elapsed_us())
     if not by_name:
         log("step profile: the profiler saw no device events; device time not measured")
         return
     device_ms = sum(us for _, us in by_name.values()) / 1e3
     n_kernels = sum(n for n, _ in by_name.values())
-    k1_ms = sum(us for name, (_, us) in by_name.items() if "scatter_add_f2_kernel" in name) / 1e3
+    k1_ms = sum(us for name, (_, us) in by_name.items() if "scatter_levels_kernel" in name) / 1e3
+    # autograd's stack of per-level table gradients was a 64 MiB
+    # CatArrayBatchedCopy (~40 us) at each SDF encode
+    cat = [name for name in by_name if "CatArrayBatchedCopy" in name]
+    cat_n, cat_us = sum(by_name[k][0] for k in cat), sum(by_name[k][1] for k in cat)
+    cat_max = max((longest[k] for k in cat), default=0.0)
     log(f"step profile ({card}): device busy {device_ms:.3f} ms of the {steady_s * 1e3:.3f} ms steady step "
         f"({device_ms / (steady_s * 1e3):.3f}); {n_kernels} device ops under {len(by_name)} names; "
-        f"K1 {k1_ms:.3f} ms")
+        f"K1 {k1_ms:.3f} ms; CatArrayBatchedCopy {cat_us / 1e3:.3f} ms ({cat_n}x, longest {cat_max:.1f} us)")
     by_kind = {}
     for name, (n, us) in by_name.items():
         kind = next((k for k, keys in KERNEL_KINDS if any(s in name for s in keys)), "other")
@@ -384,11 +445,11 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     build_all()
 
-    rows = check_k1(scene_config(), 8 * 128)
+    check_k1(scene_config(), 8 * 128)
     check_step_cuda_vs_cpu()
-    main_launches = run_main_path(card)
-
-    sites = [r for r in rows if r["launches_per_step"] > 0]
+    main_launches, captured = run_main_path(card)
+    # the kernels line: K1 per step, on the inputs the main path gave it
+    sites = check_k1_main_path_inputs(scene_config(), 8 * 128, captured)
     per_step = lambda key: sum(r[key] * r["launches_per_step"] for r in sites)
     kernels = [{
         "name": k1.KERNEL_NAME,
@@ -396,9 +457,9 @@ def main() -> int:
         "source": "neusky_torch/csrc/hashgrid_scatter.cu",
         "replaces": "neusky_tpu/ops/hashgrid_pallas.py:47",
         "launches": main_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        # times are per training step: the sum over the step's launches at
-        # each call site's shape
+        "max_abs_err": max(r["max_abs_err"] for r in sites),
+        # times are per training step: the sum over its four launches, on the
+        # inputs one main-path step gave them
         "ms": per_step("ms"),
         "plain_ms": per_step("plain_ms"),
         "bound_ms": per_step("bound_ms"),

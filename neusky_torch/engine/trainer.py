@@ -58,9 +58,21 @@ class Trainer:
         self.history: list = []
 
     def _count_rays(self, batch) -> int:
-        """Scene rays only: the JAX loop also counts the sky and DDF-fit
-        rays, which only the DDF half consumes."""
-        return int(batch["pixel_coords"].shape[0])
+        """Rays of one step, by the JAX loop's rule: the scene rays, plus the
+        DDF-fit rays when the visibility field is fitted (none until the DDF
+        slice: the model has no DDF), plus the sky rays."""
+        if "ray_bundle" in batch:
+            n = int(batch["ray_bundle"].origins.shape[0])
+        else:
+            n = int(batch["pixel_coords"].shape[0])
+        if self.model.config.fit_visibility_field and self.model.ddf is not None:
+            s = self.pipeline_config.visibility_train_sampler
+            n += s.num_samples_on_sphere * s.num_rays_per_sample
+        if "sky_ray_bundle" in batch:
+            n += int(batch["sky_ray_bundle"].origins.shape[0])
+        elif "sky_cam_idx" in batch:
+            n += int(batch["sky_cam_idx"].shape[0])
+        return n
 
     def run(self, num_steps: Optional[int] = None, log_fn: Optional[Callable] = None):
         """Run ``num_steps`` steps (default: to the configured maximum)."""

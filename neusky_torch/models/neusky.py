@@ -162,6 +162,7 @@ class NeuSkyModel:
             apply_random_rotation=config.illumination_sampler_random_rotation,
         )
         self.num_directions = self.illumination_sampler.actual_num_directions
+        self.ddf = None  # the DDF model: not ported yet (the constructor refuses a DDF config)
 
     # ------------------------------------------------------------------
 

@@ -1,10 +1,13 @@
-"""K1 — the hash-table gradient scatter-add — and the custom-gradient
+"""K1 — the hash-grid table-gradient scatter — and the custom-gradient
 lookups of the proposal fields.
 
 Counterpart of ``neusky_tpu/ops/hashgrid_pallas.py``.  The TPU kernel
 ``_scatter_kernel`` becomes the hand-written CUDA kernel in
 ``csrc/hashgrid_scatter.cu`` (see its header for the design and its bound),
-built with ``nvcc`` for ``sm_90a`` at first use and bound with ctypes.
+built with ``nvcc`` for ``sm_90a`` at first use and bound with ctypes.  It
+computes the JAX ``_scatter_levels``: all L levels of one encode in one
+launch (:func:`scatter_levels`); ``scatter_add_tablegrad(_t)`` are its
+L = 1 case.
 
 Dispatch rule: a CPU tensor takes the plain version (``index_add_`` on a
 zero table); a CUDA tensor launches the kernel or raises — there is no
@@ -32,7 +35,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-KERNEL_NAME = "hashgrid_scatter_add"
+KERNEL_NAME = "hashgrid_scatter_levels"
 launches: Dict[str, int] = {KERNEL_NAME: 0}
 
 _lib: Optional[ctypes.CDLL] = None
@@ -74,11 +77,12 @@ def _load() -> ctypes.CDLL:
     if _lib is None:
         path, _ = build()
         lib = ctypes.CDLL(str(path))
-        fn = lib.hashgrid_scatter_add_f2
+        fn = lib.hashgrid_scatter_levels
         fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
         _lib = lib
@@ -86,50 +90,93 @@ def _load() -> ctypes.CDLL:
 
 
 # ---------------------------------------------------------------------------
-# the kernel's wrapper and its plain version
+# the kernel's wrappers and its plain version
+
+
+def scatter_levels_plain(rows: torch.Tensor, vals: torch.Tensor, table_size: int) -> torch.Tensor:
+    """Plain version: ``out[l, f, rows[l, i]] += vals[l, f, i]`` into a zero
+    [L, F, T] table, one ``index_add_`` on its flat view; rows outside
+    [0, T) are dropped."""
+    levels, f, _ = vals.shape
+    r = rows.long()
+    keep = (r >= 0) & (r < table_size)  # [L, M]
+    base = torch.arange(levels * f, device=rows.device).reshape(levels, f, 1) * table_size
+    flat = base + torch.where(keep, r, 0)[:, None, :]
+    out = torch.zeros(levels * f * table_size, dtype=vals.dtype, device=vals.device)
+    out.index_add_(0, flat.reshape(-1), torch.where(keep[:, None, :], vals, 0.0).reshape(-1))
+    return out.reshape(levels, f, table_size)
 
 
 def scatter_add_plain(idx: torch.Tensor, updates: torch.Tensor, table_size: int) -> torch.Tensor:
-    """Plain version: Σ-scatter of ``updates`` [M, 2] at rows ``idx`` [M]
-    into a zero [T, 2] table (duplicates add)."""
-    out = torch.zeros((table_size, updates.shape[1]), dtype=updates.dtype, device=updates.device)
-    return out.index_add_(0, idx, updates)
+    """Plain version of the row-major L = 1 case: [M, 2] at rows [M] → [T, 2]."""
+    return scatter_levels_plain(idx[None], updates.t()[None], table_size)[0].t().contiguous()
 
 
 def scatter_add_plain_t(idx: torch.Tensor, updates_ft: torch.Tensor, table_size: int) -> torch.Tensor:
-    """Plain version of the plane-major layout: [F, M] → [F, T]."""
-    return scatter_add_plain(idx, updates_ft.t(), table_size).t().contiguous()
+    """Plain version of the plane-major L = 1 case: [F, M] → [F, T]."""
+    return scatter_levels_plain(idx[None], updates_ft[None], table_size)[0]
 
 
-def _launch(idx: torch.Tensor, upd: torch.Tensor, table_size: int, transposed: bool) -> torch.Tensor:
-    if idx.dtype != torch.int32 or upd.dtype != torch.float32:
-        raise TypeError(f"K1 takes int32 indices and float32 values, got {idx.dtype} and {upd.dtype}")
-    m = idx.shape[0]
-    want = (2, m) if transposed else (m, 2)
-    if idx.dim() != 1 or tuple(upd.shape) != want:
-        raise ValueError(f"K1 shapes: idx [M], updates {list(want)}; got {list(idx.shape)}, {list(upd.shape)}")
-    if not (idx.is_contiguous() and upd.is_contiguous()):
+def _check(rows: torch.Tensor, vals: torch.Tensor, want_rows, want_vals, table_size: int) -> None:
+    """Refuse what the kernel does not take, before anything is allocated:
+    it never falls back."""
+    if rows.dtype != torch.int32 or vals.dtype != torch.float32:
+        raise TypeError(f"K1 takes int32 indices and float32 values, got {rows.dtype} and {vals.dtype}")
+    if tuple(rows.shape) != want_rows or tuple(vals.shape) != want_vals:
+        raise ValueError(f"K1 shapes: rows {list(want_rows)}, values {list(want_vals)}; "
+                         f"got {list(rows.shape)}, {list(vals.shape)}")
+    if not (rows.is_contiguous() and vals.is_contiguous()):
         raise ValueError("K1 takes contiguous tensors")
-    if idx.device.type != "cuda" or upd.device.type != "cuda" or idx.device != upd.device:
-        raise ValueError(f"K1 needs both tensors on one CUDA device, got {idx.device} and {upd.device}")
-    shape = (2, table_size) if transposed else (table_size, 2)
-    out = torch.zeros(shape, dtype=torch.float32, device=upd.device)
-    if m == 0:
-        return out
-    # (row stride, feature stride) of updates and output
-    us = (1, m) if transposed else (2, 1)
-    os_ = (1, table_size) if transposed else (2, 1)
+    if rows.device.type != "cuda" or vals.device.type != "cuda" or rows.device != vals.device:
+        raise ValueError(f"K1 needs both tensors on one CUDA device, got {rows.device} and {vals.device}")
+    levels = rows.shape[0] if rows.dim() == 2 else 1
+    if max(rows.numel(), levels * 2 * table_size) >= 2**31:
+        raise ValueError(f"K1 indexes with 32 bits: rows {list(rows.shape)}, T={table_size}")
+
+
+def _run(rows, vals, out, table_size: int, vals_strides, out_strides) -> torch.Tensor:
+    """Launch K1 on checked tensors: rows [L, M], output slabs of 2T floats
+    (zeroed by the library); strides are (feature, row) in elements."""
+    levels, m = rows.shape
+    if levels * m == 0:
+        return out.zero_()
     lib = _load()
-    stream = torch.cuda.current_stream(upd.device).cuda_stream
-    with torch.cuda.device(upd.device):
-        err = lib.hashgrid_scatter_add_f2(
-            idx.data_ptr(), upd.data_ptr(), us[0], us[1],
-            out.data_ptr(), os_[0], os_[1], m, table_size, stream,
+    stream = torch.cuda.current_stream(vals.device).cuda_stream
+    with torch.cuda.device(vals.device):
+        err = lib.hashgrid_scatter_levels(
+            rows.data_ptr(), vals.data_ptr(), out.data_ptr(), levels, m, table_size,
+            *vals_strides, *out_strides, stream,
         )
     if err != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {err}")
     launches[KERNEL_NAME] += 1
     return out
+
+
+def _launch_levels(rows: torch.Tensor, vals: torch.Tensor, table_size: int) -> torch.Tensor:
+    levels, m = rows.shape if rows.dim() == 2 else (0, 0)
+    _check(rows, vals, (levels, m), (levels, 2, m), table_size)
+    out = torch.empty((levels, 2, table_size), dtype=torch.float32, device=vals.device)
+    return _run(rows, vals, out, table_size, (m, 1), (table_size, 1))
+
+
+def _launch(idx: torch.Tensor, upd: torch.Tensor, table_size: int, transposed: bool) -> torch.Tensor:
+    """The L = 1 case: idx [M], updates [2, M] (``transposed``) or [M, 2]."""
+    m = idx.shape[0] if idx.dim() == 1 else -1
+    _check(idx, upd, (m,), (2, m) if transposed else (m, 2), table_size)
+    shape = (2, table_size) if transposed else (table_size, 2)
+    out = torch.empty(shape, dtype=torch.float32, device=upd.device)
+    strides, out_strides = ((m, 1), (table_size, 1)) if transposed else ((1, 2), (1, 2))
+    return _run(idx[None], upd, out, table_size, strides, out_strides)
+
+
+def scatter_levels(rows: torch.Tensor, vals: torch.Tensor, table_size: int) -> torch.Tensor:
+    """rows [L, M] int32, vals [L, 2, M] → [L, 2, T] gradient tables:
+    ``out[l, f, rows[l, i]] += vals[l, f, i]``, rows outside [0, T)
+    dropped.  One launch for all levels."""
+    if rows.device.type == "cpu" and vals.device.type == "cpu":
+        return scatter_levels_plain(rows, vals, table_size)
+    return _launch_levels(rows, vals.contiguous(), table_size)
 
 
 def scatter_add_tablegrad(idx: torch.Tensor, updates: torch.Tensor, table_size: int) -> torch.Tensor:

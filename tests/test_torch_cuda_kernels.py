@@ -69,8 +69,9 @@ def test_k1_refuses_cuda_tensors_it_does_not_take(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("stoch", [False, True], ids=["exact", "stochastic"])
 def test_encode_with_dx_table_gradient_on_card_matches_cpu(cuda_device, stoch):
-    """The SDF field's encode backward through K1 (one launch per level)
-    against the same backward on the CPU through the plain version."""
+    """The SDF field's encode backward through K1 (one launch for all
+    levels) against the same backward on the CPU through the plain
+    version."""
     cfg = hg.HashGridConfig(num_levels=5, log2_hashmap_size=10, base_res=4, max_res=45)
     enc = hg.HashGridEncoding(cfg)
     rng = np.random.default_rng(3)
@@ -87,6 +88,79 @@ def test_encode_with_dx_table_gradient_on_card_matches_cpu(cuda_device, stoch):
         ((o * torch.from_numpy(ct).to(dev)).sum() + (d * torch.from_numpy(ctd).to(dev)).sum()).backward()
         grads[str(dev)] = (tt.grad.cpu(), k1.launches[k1.KERNEL_NAME] - before)
     (g_cpu, n_cpu), (g_card, n_card) = grads["cpu"], grads[str(cuda_device)]
-    assert (n_cpu, n_card) == (0, cfg.num_levels)
+    assert (n_cpu, n_card) == (0, 1)
     # d/dx cotangents carry the resolution (≤ 45): atol scaled to match
     torch.testing.assert_close(g_card, g_cpu, atol=45 * ATOL, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# all levels of an encode in one launch
+
+
+def _levels_case(kind: str):
+    """(rows [L, M] int32, vals [L, 2, M], T): only dense-sized levels (rows
+    past the table included: dropped), only hashed levels, a mixed
+    pyramid with an encoding's own rows in ray order (runs of equal rows),
+    and one level that takes heavy duplicates.  No M is a multiple of the
+    block."""
+    rng = np.random.default_rng({"dense_only": 0, "hashed_only": 1, "mixed_pyramid": 2, "heavy_duplicates": 3}[kind])
+    if kind == "dense_only":
+        t, m = 4913, 5001
+        rows = np.stack([rng.integers(0, r, m) for r in (125, 729, t + 40)])
+    elif kind == "hashed_only":
+        t, m = 1 << 14, 5001
+        rows = rng.integers(0, t, (4, m))
+    elif kind == "mixed_pyramid":
+        enc = hg.HashGridEncoding(hg.HashGridConfig(num_levels=16, log2_hashmap_size=19))
+        t, n_rays, s = 1 << 19, 1025, 48
+        o, d = rng.uniform(0, 1, (n_rays, 1, 3)), rng.normal(size=(n_rays, 1, 3))
+        along = np.sort(rng.uniform(0, 1, (n_rays, s, 1)), axis=1)
+        x = np.clip(o + 0.5 * along * d / np.linalg.norm(d, axis=-1, keepdims=True), 0, 1).reshape(-1, 3)
+        idx, _, _ = enc._all_iw(torch.from_numpy(x.T.astype(np.float32)), need_dw=False)
+        m = n_rays * s
+        rows = torch.gather(idx, 1, torch.from_numpy(rng.integers(0, 8, (16, 1, m)))).numpy()[:, 0]
+    else:
+        t, m = 1 << 19, 262_144 + 3
+        rows = rng.integers(0, 17**2, (1, m))
+    vals = rng.normal(size=(rows.shape[0], 2, m)).astype(np.float32)
+    return rows.astype(np.int32), vals, t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense_only", "hashed_only", "mixed_pyramid", "heavy_duplicates"])
+def test_k1_all_levels_match_plain(cuda_device, kind):
+    """One launch writes the whole [L, 2, T] output, zero rows included: the
+    output's memory is filled with NaN just before, so any cell the kernel
+    leaves unwritten fails the comparison.  Atomics and the warp's run sums
+    reorder each row's sum: atol 1e-4 (the Pallas test's) up to 64 updates
+    a row, growing linearly beyond."""
+    rows, vals, t = _levels_case(kind)
+    r, v = torch.from_numpy(rows).to(cuda_device), torch.from_numpy(vals).to(cuda_device)
+    ref = k1.scatter_levels_plain(r, v, t)
+    junk = torch.full((r.shape[0], 2, t), float("nan"), device=cuda_device)
+    del junk  # the caching allocator hands this block to the kernel's output
+    before = k1.launches[k1.KERNEL_NAME]
+    out = k1.scatter_levels(r, v, t)
+    torch.cuda.synchronize()
+    assert k1.launches[k1.KERNEL_NAME] == before + 1
+    max_dup = max(int(torch.bincount(r[l].long().clamp(0, t)).max()) for l in range(r.shape[0]))
+    torch.testing.assert_close(out, ref, atol=1e-4 * max(1.0, max_dup / 64.0), rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "bad, err, match",
+    [
+        (dict(rows_dtype=torch.int64), TypeError, "int32"),
+        (dict(vals_shape=(2, 3, 100)), ValueError, "shapes"),
+        (dict(rows_device="cpu"), ValueError, "CUDA device"),
+        (dict(table_size=2**28), ValueError, "32 bits"),
+    ],
+    ids=["int64_rows", "three_features", "rows_on_cpu", "too_large_for_32_bit_indices"],
+)
+def test_k1_all_levels_refuse_what_the_kernel_does_not_take(cuda_device, bad, err, match):
+    """No fallback: a CUDA call the kernel does not take raises."""
+    rows = torch.zeros((4, 100), dtype=bad.get("rows_dtype", torch.int32), device=bad.get("rows_device", cuda_device))
+    vals = torch.zeros(bad.get("vals_shape", (4, 2, 100)), device=cuda_device)
+    with pytest.raises(err, match=match):
+        k1.scatter_levels(rows, vals, bad.get("table_size", 64))

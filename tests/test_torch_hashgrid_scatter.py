@@ -99,3 +99,27 @@ def test_launch_refuses_what_the_kernel_does_not_take(bad, err, match):
     upd = torch.zeros(bad.get("shape", (8, 2)), dtype=bad.get("val_dtype", torch.float32))
     with pytest.raises(err, match=match):
         k1._launch(idx, upd, 16, transposed=False)
+
+
+@pytest.mark.parametrize(
+    "bad, err, match",
+    [
+        (dict(rows_dtype=torch.int64), TypeError, "int32"),
+        (dict(vals_shape=(2, 3, 8)), ValueError, "shapes"),
+        (dict(vals_shape=(3, 2, 8)), ValueError, "shapes"),
+        (dict(rows_shape=(16,)), ValueError, "shapes"),
+        (dict(strided=True), ValueError, "contiguous"),
+        (dict(), ValueError, "CUDA device"),
+    ],
+    ids=["int64_rows", "three_features", "level_mismatch", "flat_rows", "strided", "not_cuda"],
+)
+def test_launch_levels_refuses_what_the_kernel_does_not_take(bad, err, match):
+    """The all-level launcher checks types, shapes, contiguity and device
+    before it touches the library; it never falls back."""
+    rows = torch.zeros(bad.get("rows_shape", (2, 16 if bad.get("strided") else 8)),
+                       dtype=bad.get("rows_dtype", torch.int32))
+    if bad.get("strided"):
+        rows = rows[:, ::2]
+    vals = torch.zeros(bad.get("vals_shape", (2, 2, 8)))
+    with pytest.raises(err, match=match):
+        k1._launch_levels(rows, vals, 16)
