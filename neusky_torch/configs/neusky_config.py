@@ -1,19 +1,20 @@
 """Canonical NeuSky recipe (mirror of
-``neusky_tpu/configs/neusky_config.py::neusky_model_config``).
-
-The DDF field is not ported yet, so the canonical base sets ``ddf=None``;
-the scene slice calls it with ``use_visibility=False``,
-``fit_visibility_field=False`` and ``losses.sdf_level_set_visibility=False``
-exactly as it would call the JAX function.
-"""
+``neusky_tpu/configs/neusky_config.py``): ``neusky_model_config`` (the
+joint model, with the FiLM-SIREN DDF on NeRF encodings) and
+``neusky_pipeline_config`` (vMF DDF rays, 8 sphere points × 128 rays at
+κ = 20, 256 sky rays)."""
 
 from __future__ import annotations
 
+from neusky_torch.fields.ddf import DDFFieldConfig
 from neusky_torch.fields.density_field import DensityFieldConfig
 from neusky_torch.fields.reni import RENIFieldConfig
 from neusky_torch.fields.sdf_albedo import SDFAlbedoFieldConfig
+from neusky_torch.models.ddf_model import DDFLossConfig, DDFModelConfig
 from neusky_torch.models.neusky import LossInclusions, NeuSkyModelConfig
+from neusky_torch.models.pipeline import PipelineConfig
 from neusky_torch.ops.hashgrid import HashGridConfig
+from neusky_torch.sampling.ddf_sampler import DDFSamplerConfig
 from neusky_torch.sampling.proposal import ProposalSamplerConfig
 
 SDF_HASH = HashGridConfig(
@@ -51,7 +52,28 @@ def neusky_model_config(num_train_data: int, num_eval_data: int, **overrides) ->
             fixed_decoder=True, trainable_scale=True,
         ),
         illumination_prior_dir="checkpoints/reni_prior_variational",
-        ddf=None,
+        ddf=DDFModelConfig(
+            field=DDFFieldConfig(
+                ddf_type="ddf",
+                position_encoding_type="nerf",
+                direction_encoding_type="nerf", conditioning="FiLM",
+                termination_output_activation="sigmoid",
+                hidden_layers=5, hidden_features=256,
+                mapping_layers=5, mapping_features=256,
+                num_attention_heads=8, num_attention_layers=6,
+                predict_probability_of_hit=False,
+            ),
+            losses=DDFLossConfig(
+                depth_l1=True, depth_l2=False, sdf_l1=False, sdf_l2=True,
+                prob_hit=False, normal=False, multi_view=True, sky_ray=True,
+            ),
+            include_depth_loss_scene_center_weight=True,
+            scene_center_weight_exp=3.0,
+            scene_center_weight_include_z=False,
+            mask_to_circumference=False,
+            inverse_depth_weight=False,
+            log_depth=False,
+        ),
         num_illumination_directions=512,
         illumination_sampler_random_rotation=True,
         fix_test_illumination_directions=True,
@@ -85,3 +107,17 @@ def neusky_model_config(num_train_data: int, num_eval_data: int, **overrides) ->
     )
     base.update(overrides)
     return NeuSkyModelConfig(**base)
+
+
+def neusky_pipeline_config(**overrides) -> PipelineConfig:
+    base = dict(
+        stop_sdf_gradients=False,
+        visibility_accumulation_mask_threshold=0.0,
+        visibility_train_sampler=DDFSamplerConfig(
+            num_samples_on_sphere=8, num_rays_per_sample=128,
+            only_sample_upper_hemisphere=True, concentration=20.0,
+        ),
+        num_sky_rays=256,
+    )
+    base.update(overrides)
+    return PipelineConfig(**base)

@@ -1,13 +1,51 @@
 """Sphere math (mirror of ``neusky_tpu/core/spherical.py``): ray/sphere
-intersection, look-at frames, random rotations and the icosphere."""
+intersection, look-at frames, random rotations, random points and
+directions on the sphere, and the icosphere."""
 
 from __future__ import annotations
 
+import math
 from functools import lru_cache
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+
+def sph2cart(theta: torch.Tensor, phi: torch.Tensor) -> torch.Tensor:
+    """(azimuth θ, polar angle φ from +z) → unit vectors [..., 3], z-up."""
+    return torch.stack(
+        [torch.sin(phi) * torch.cos(theta), torch.sin(phi) * torch.sin(theta), torch.cos(phi)], dim=-1
+    )
+
+
+def draw_sphere_uniforms(
+    num_points: int, generator: Optional[torch.Generator], device
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two [num_points] uniforms :func:`random_points_on_unit_sphere`
+    consumes (the JAX ``uniform(k_t)`` and ``uniform(k_p)`` of
+    ``split(rng)``)."""
+    return (torch.rand((num_points,), generator=generator, device=device),
+            torch.rand((num_points,), generator=generator, device=device))
+
+
+def random_points_on_unit_sphere(u_theta: torch.Tensor, u_phi: torch.Tensor) -> torch.Tensor:
+    """Uniform points on S² from explicit uniforms: θ = 2π·u_θ,
+    cos φ = 2·u_φ − 1.  Returns [N, 3]."""
+    theta = 2.0 * math.pi * u_theta
+    phi = torch.arccos(2.0 * u_phi - 1.0)
+    return sph2cart(theta, phi)
+
+
+def random_inward_facing_directions(
+    u_theta: torch.Tensor, u_phi: torch.Tensor, num_directions: int, normals: torch.Tensor
+) -> torch.Tensor:
+    """For each normal [P, 3], ``num_directions`` directions in its
+    hemisphere: uniform points on the sphere (uniforms of length
+    P·num_directions), negated where they face away.  Returns [P, D, 3]."""
+    dirs = random_points_on_unit_sphere(u_theta, u_phi).reshape(normals.shape[0], num_directions, 3)
+    dots = torch.sum(normals[:, None, :] * dirs, dim=-1, keepdim=True)
+    return torch.where(dots < 0, -dirs, dirs)
 
 
 def ray_sphere_intersection(positions: torch.Tensor, directions: torch.Tensor, radius) -> torch.Tensor:
@@ -22,21 +60,49 @@ def ray_sphere_intersection(positions: torch.Tensor, directions: torch.Tensor, r
     return positions + t[..., None] * directions
 
 
+def _to_f32(x: np.ndarray) -> np.ndarray:
+    """Round float64 values to float32 (and keep them as float64)."""
+    return x.astype(np.float32).astype(np.float64)
+
+
+def fused_dot3(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """float32 Σ_k a_k·b_k over a last axis of 3, in the order XLA's CPU
+    backend computes it (products contracted into fused multiply-adds):
+    fma(a₂, b₂, fma(a₁, b₁, a₀·b₀)).  Each fma is emulated in float64,
+    where the product of two float32 values is exact."""
+    a, b = np.asarray(a, np.float32).astype(np.float64), np.asarray(b, np.float32).astype(np.float64)
+    acc = _to_f32(a[..., 0] * b[..., 0])
+    acc = _to_f32(a[..., 1] * b[..., 1] + acc)
+    return (a[..., 2] * b[..., 2] + acc).astype(np.float32)
+
+
+def _fused_cross(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """float32 a × b as XLA's CPU backend computes ``jnp.cross``:
+    fma(a_i, b_j, −(a_j·b_i)) per component."""
+    a, b = np.asarray(a, np.float32).astype(np.float64), np.asarray(b, np.float32).astype(np.float64)
+    return np.stack([(a[..., i] * b[..., j] - _to_f32(a[..., j] * b[..., i])).astype(np.float32)
+                     for i, j in ((1, 2), (2, 0), (0, 1))], axis=-1)
+
+
+def fused_normalize(v: np.ndarray) -> np.ndarray:
+    """float32 v / ‖v‖ with the norm as :func:`fused_dot3` computes it."""
+    v = np.asarray(v, np.float32)
+    return v / np.sqrt(fused_dot3(v, v))[..., None]
+
+
 def look_at_target(
     camera_positions: np.ndarray, target_positions: np.ndarray, up_vector=(0.0, 0.0, 1.0)
 ) -> np.ndarray:
     """c2w matrices [..., 4, 4] looking from cameras at targets (OpenGL
-    convention: forward = −view direction).  Host-side numpy in float32."""
+    convention: forward = −view direction).  Host-side numpy in float32,
+    in the JAX package's float32 order on the CPU (fused multiply-adds in
+    the cross products and norms), so the two agree bit for bit."""
     cam = np.asarray(camera_positions, np.float32)
     tgt = np.asarray(target_positions, np.float32)
     up = np.broadcast_to(np.asarray(up_vector, np.float32), cam.shape)
-
-    def normalize(v):
-        return v / np.linalg.norm(v, axis=-1, keepdims=True)
-
-    forward = -normalize(tgt - cam)
-    right = normalize(np.cross(up, forward))
-    actual_up = normalize(np.cross(forward, right))
+    forward = -fused_normalize(tgt - cam)
+    right = fused_normalize(_fused_cross(up, forward))
+    actual_up = fused_normalize(_fused_cross(forward, right))
     c2w = np.zeros(cam.shape[:-1] + (4, 4), np.float32)
     c2w[..., :3, 0] = right
     c2w[..., :3, 1] = actual_up

@@ -1,6 +1,11 @@
 """Synthetic analytic scene (mirror of ``neusky_tpu/data/synthetic.py``): a
 sphere under a sun + ambient sky, rendered in closed form — images, 4-channel
-masks (static, fg, ground, sky) and cameras with known geometry."""
+masks (static, fg, ground, sky) and cameras with known geometry.
+
+The cameras and the rendered rays are computed on the host in float32 in
+the JAX package's order on the CPU (fused multiply-adds in the cross
+products, norms and the camera-to-world product), so the two scenes agree
+bit for bit, silhouette pixels included."""
 
 from __future__ import annotations
 
@@ -11,7 +16,7 @@ import numpy as np
 import torch
 
 from neusky_torch.core.cameras import Cameras, CameraType
-from neusky_torch.core.spherical import look_at_target
+from neusky_torch.core.spherical import fused_dot3, fused_normalize, look_at_target
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +50,20 @@ def _sphere_hit(origins: np.ndarray, dirs: np.ndarray, center, radius):
     return (disc > 0) & (t > 0), t
 
 
+def _render_rays(c2w: np.ndarray, config: SyntheticSceneConfig):
+    """(origins, unit directions) [H·W, 3] of one camera (c2w [3, 4]) at the
+    pixel centres, row-major: ``Cameras.generate_rays`` in the JAX
+    package's float32 order."""
+    c = config
+    yy, xx = np.meshgrid(np.arange(c.height, dtype=np.float32) + np.float32(0.5),
+                         np.arange(c.width, dtype=np.float32) + np.float32(0.5), indexing="ij")
+    v, u = yy.reshape(-1), xx.reshape(-1)
+    f, cx, cy = np.float32(c.focal_px), np.float32(c.width / 2.0), np.float32(c.height / 2.0)
+    dirs_cam = np.stack([(u - cx) / f, -(v - cy) / f, np.full_like(u, -1.0)], axis=-1)
+    dirs = fused_dot3(c2w[None, :3, :3], dirs_cam[:, None, :])  # [H·W, 3]
+    return np.broadcast_to(c2w[:3, 3], dirs.shape), fused_normalize(dirs)
+
+
 def generate_synthetic_scene(config: SyntheticSceneConfig) -> Dict[str, object]:
     """``images`` [C, H, W, 3], ``masks`` [C, H, W, 4], ``depths``,
     ``normals`` (numpy) and CPU ``cameras``."""
@@ -68,9 +87,7 @@ def generate_synthetic_scene(config: SyntheticSceneConfig) -> Dict[str, object]:
     albedo = np.asarray(c.albedo)
     images, masks, depths, normals_out = [], [], [], []
     for i in range(n):
-        rb = cameras.generate_rays(i)
-        o = rb.origins.numpy().astype(np.float64)
-        d = rb.directions.numpy().astype(np.float64)
+        o, d = (x.astype(np.float64) for x in _render_rays(c2w[i], c))
         hit, t = _sphere_hit(o, d, c.sphere_center, c.sphere_radius)
         nrm = (o + d * t[..., None] - np.asarray(c.sphere_center)) / c.sphere_radius
         shade = c.ambient + c.sun_intensity * np.maximum(nrm @ sun, 0.0)

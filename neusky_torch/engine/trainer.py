@@ -59,8 +59,8 @@ class Trainer:
 
     def _count_rays(self, batch) -> int:
         """Rays of one step, by the JAX loop's rule: the scene rays, plus the
-        DDF-fit rays when the visibility field is fitted (none until the DDF
-        slice: the model has no DDF), plus the sky rays."""
+        DDF-fit rays when the visibility field is fitted, plus the sky rays
+        (1,024 + 1,024 + 256 = 2,304 for the canonical joint step)."""
         if "ray_bundle" in batch:
             n = int(batch["ray_bundle"].origins.shape[0])
         else:

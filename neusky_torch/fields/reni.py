@@ -71,7 +71,7 @@ class RENIField:
     def __init__(self, config: RENIFieldConfig):
         if config.conditioning != "Attention":
             raise NotImplementedError(
-                f"RENI conditioning {config.conditioning!r} needs nets/siren.py (DDF slice)"
+                f"RENI conditioning {config.conditioning!r} is not ported yet"
             )
         self.config = config
 

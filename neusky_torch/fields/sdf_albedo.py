@@ -148,6 +148,13 @@ class SDFAlbedoField:
         h = self._geo_mlp(params["params"], self._geo_input(params["params"], positions, custom_take, stoch_salt))
         return h[..., :1], h[..., 1:]
 
+    def sdf_only(self, params, positions: torch.Tensor, stoch_salt=None) -> torch.Tensor:
+        """The SDF at ``positions`` [..., 3] → [M, 1] through the exact
+        all-level encode (K1 in its backward); with ``stoch_salt`` the table
+        gradient samples one corner per (sample, level), while the value and
+        the position cotangent stay exact."""
+        return self.geo(params, positions.reshape(-1, 3), custom_take=True, stoch_salt=stoch_salt)[0]
+
     def inv_s(self, params) -> torch.Tensor:
         return torch.clamp(torch.exp(params["params"]["variance"] * 10.0), 1e-6, 1e6)
 

@@ -1,4 +1,4 @@
-"""Scene losses (mirror of ``neusky_tpu/models/losses.py:28-178,226``)."""
+"""Scene and DDF losses (mirror of ``neusky_tpu/models/losses.py``)."""
 
 from __future__ import annotations
 
@@ -126,3 +126,52 @@ def visibility_sigmoid_loss(
 
 def scale_loss_dict(loss_dict: dict, coefficients: dict) -> dict:
     return {k: v * coefficients.get(k, 1.0) for k, v in loss_dict.items()}
+
+
+# ---------- DDF losses (mirror of ``neusky_tpu/models/losses.py:180-223``) ----------
+
+
+def ddf_depth_loss(
+    expected_dist: torch.Tensor,
+    gt_dist: torch.Tensor,
+    mask: torch.Tensor,
+    ddf_radius: float,
+    mask_to_circumference: bool = False,
+    distance_weight=None,
+    inverse_depth_weight: bool = False,
+    use_l2: bool = False,
+) -> torch.Tensor:
+    """Depth supervision of the DDF, masked to hits (or, with
+    ``mask_to_circumference``, with misses set to the sphere's diameter)."""
+    if mask_to_circumference:
+        gt = torch.where(mask == 0, torch.full_like(gt_dist, ddf_radius * 2.0), gt_dist)
+        pred = expected_dist
+    else:
+        gt = gt_dist * mask
+        pred = expected_dist * mask
+    err = (pred - gt) ** 2 if use_l2 else _abs(pred - gt)
+    if inverse_depth_weight:
+        err = err / (gt + 1e-6)
+    if distance_weight is not None:
+        err = err * distance_weight
+    return torch.mean(err)
+
+
+def ddf_sdf_level_loss(sdf_at_termination: torch.Tensor, mask: torch.Tensor, use_l2: bool) -> torch.Tensor:
+    """The SDF at the predicted termination point should be zero."""
+    v = sdf_at_termination * mask
+    return torch.mean(v**2) if use_l2 else torch.mean(_abs(v))
+
+
+def ddf_multi_view_loss(expected: torch.Tensor, max_allowed: torch.Tensor) -> torch.Tensor:
+    """Predictions may not exceed the known distance to a GT surface point
+    seen from another sphere point."""
+    return torch.mean(torch.relu(expected - max_allowed) ** 2)
+
+
+def ddf_sky_ray_loss(expected: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    return torch.mean(_abs(expected - gt))
+
+
+def ddf_prob_hit_loss(prob: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return binary_cross_entropy(prob, mask)

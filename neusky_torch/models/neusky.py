@@ -1,15 +1,19 @@
-"""NeuSky model, scene half (mirror of ``neusky_tpu/models/neusky.py``).
+"""NeuSky model (mirror of ``neusky_tpu/models/neusky.py``).
 
 Plain orchestrator over an explicit params dict whose top-level groups are
 the optimizer groups: ``fields``, ``proposal_networks_{i}``,
-``illumination_field``, ``eval_latents``, ``illumination_decoder`` and
-``visibility_sigmoid``.  The scene half runs the proposal sampler through
-the two hash-grid density fields, the SDF/albedo field with analytic d/dx,
-the frozen RENI++ decoder, Lambertian shading and the scene losses.
+``illumination_field``, ``eval_latents``, ``illumination_decoder``,
+``visibility_sigmoid`` and ``ddf_field``.  The forward runs the proposal
+sampler through the two hash-grid density fields, the SDF/albedo field
+with analytic d/dx, the frozen RENI++ decoder, the DDF visibility of every
+(ray, upper-hemisphere light direction) pair with the SDF at a strided
+subset of the DDF's termination points, Lambertian shading and the scene
+losses.  ``generate_ddf_ground_truth`` renders the DDF's supervision from
+the SDF.
 
-Not ported yet (DDF slice): ``compute_visibility``,
-``generate_ddf_ground_truth``, ``forward_with_ddf_gt`` and the DDF model;
-a config that asks for them raises ``NotImplementedError``.
+Not ported yet: ``forward_with_ddf_gt`` (the fused scene and ground-truth
+pass), the GT-illumination probe and Blinn-Phong shading; a config that
+asks for them raises ``NotImplementedError``.
 
 Randomness: ``forward`` takes ``draws``, a dict of explicit random draws
 (see :meth:`NeuSkyModel.draw`); any draw it lacks comes from ``generator``.
@@ -18,22 +22,30 @@ The keys and their JAX sources (``jax.random`` calls under the key tree of
 
 - ``proposal_jitters``: [N, 1] uniforms per proposal round + final round;
 - ``proposal_stoch_u``: [N·S_i] uniforms per proposal field (``stoch_u``);
-- ``sdf_salt``: uint32 salt of the SDF stochastic table gradient;
+- ``sdf_salt``: uint32 salt of the SDF stochastic table gradient (the
+  scene's ``field_outputs`` and the level-set query at the DDF's
+  termination points share it, as in JAX);
 - ``light_rotation``: the four normals of the light-direction rotation;
 - ``grid_jitter`` [R³, 3] uniforms, ``grid_dirs`` [R³, 3] normals and
   ``grid_salt``: the hash-grid density prior's perturbed grid.
+
+``generate_ddf_ground_truth`` takes ``proposal_stoch_u`` and ``sdf_salt``
+of its own (:meth:`NeuSkyModel.draw_ddf_gt`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from neusky_torch.core.colour import linear_to_sRGB
 from neusky_torch.core.rays import (
     RayBundle,
+    RaySamples,
     render_accumulation,
     render_depth,
     render_normal,
@@ -41,11 +53,13 @@ from neusky_torch.core.rays import (
     weights_and_transmittance_from_alphas,
 )
 from neusky_torch.core.scene import aabb_collider, sphere_collider
+from neusky_torch.core.spherical import ray_sphere_intersection
 from neusky_torch.device import resolve_device
 from neusky_torch.fields.density_field import DensityFieldConfig, HashMLPDensityField
 from neusky_torch.fields.reni import RENIField, RENIFieldConfig
 from neusky_torch.fields.sdf_albedo import SDFAlbedoField, SDFAlbedoFieldConfig
 from neusky_torch.models import losses as L
+from neusky_torch.models.ddf_model import DDFModel, DDFModelConfig
 from neusky_torch.nets.density import neus_alpha
 from neusky_torch.sampling.illumination import IcosahedronSampler
 from neusky_torch.sampling.proposal import ProposalSamplerConfig, proposal_sample
@@ -94,9 +108,7 @@ class NeuSkyModelConfig:
     proposal_fields: Tuple[DensityFieldConfig, ...] = (DensityFieldConfig(), DensityFieldConfig())
     illumination: RENIFieldConfig = RENIFieldConfig()
     illumination_prior_dir: Optional[str] = None
-    ddf: Optional[Any] = None
-    """Placeholder until the DDF slice ports ``DDFModelConfig`` (the JAX
-    default is a ``DDFModelConfig()``); only ``None`` is accepted."""
+    ddf: Optional[DDFModelConfig] = DDFModelConfig()
     num_illumination_directions: int = 512
     illumination_sampler_random_rotation: bool = True
     fix_test_illumination_directions: bool = True
@@ -140,16 +152,41 @@ def _u32_salt(generator, device) -> torch.Tensor:
     return torch.randint(0, 2**32, (), generator=generator, device=device, dtype=torch.int64)
 
 
+def visibility_query_directions(config: NeuSkyModelConfig, num_directions: int) -> int:
+    """The light directions each ray's visibility queries: with
+    ``only_upperhemisphere_visibility`` (and more than 8 directions) the
+    top k = min(D, D//2 + 8) by z, else all D."""
+    if config.only_upperhemisphere_visibility and num_directions > 8:
+        return min(num_directions, num_directions // 2 + 8)
+    return num_directions
+
+
+def top_k_indices(values: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the ``k`` largest of ``values`` [D] in ``jax.lax.top_k``'s
+    order: descending, equal values by index (a stable sort)."""
+    return torch.sort(values, descending=True, stable=True).indices[:k]
+
+
+def _chunked_apply(fn, args: Tuple[torch.Tensor, ...], chunk: int, remat_policy: str = "full"):
+    """``fn`` over the leading axis in chunks of ``chunk`` rows, each chunk
+    under ``torch.utils.checkpoint`` (its activations are recomputed in the
+    backward): bounds the peak memory of the N·D visibility queries.  Exact,
+    since ``fn`` is row-wise and the chunks' results are concatenated.
+    ``fn`` returns a dict of tensors."""
+    if remat_policy != "full":
+        raise NotImplementedError(f"visibility_remat_policy {remat_policy!r} is not ported yet")
+    m = args[0].shape[0]
+    outs = [checkpoint(fn, *(a[s:s + chunk] for a in args), use_reentrant=False) for s in range(0, m, chunk)]
+    return {k: torch.cat([o[k] for o in outs], dim=0) for k in outs[0]}
+
+
 class NeuSkyModel:
     """See the module docstring.  Entry point: runs on ``device``
     (default CUDA; raises without a card unless ``device="cpu"``)."""
 
     def __init__(self, config: NeuSkyModelConfig, device="cuda"):
-        if config.ddf is not None or config.use_visibility or config.fit_visibility_field:
-            raise NotImplementedError(
-                "DDF visibility is not ported yet: set ddf=None, use_visibility=False, "
-                "fit_visibility_field=False"
-            )
+        if config.sdf_query_chunk:
+            raise NotImplementedError("a chunked level-set SDF query (sdf_query_chunk > 0) is not ported yet")
         if config.gt_illumination_probe or config.sdf_field.predict_shininess:
             raise NotImplementedError("the GT-illumination probe and Blinn-Phong shading are not ported yet")
         self.config = config
@@ -162,7 +199,7 @@ class NeuSkyModel:
             apply_random_rotation=config.illumination_sampler_random_rotation,
         )
         self.num_directions = self.illumination_sampler.actual_num_directions
-        self.ddf = None  # the DDF model: not ported yet (the constructor refuses a DDF config)
+        self.ddf = DDFModel(config.ddf, ddf_radius=config.ddf_radius) if config.ddf is not None else None
 
     # ------------------------------------------------------------------
 
@@ -185,6 +222,8 @@ class NeuSkyModel:
         }
         for i, pf in enumerate(self.proposal_fields):
             params[f"proposal_networks_{i}"] = pf.init(generator, dev)
+        if self.ddf is not None:
+            params["ddf_field"] = self.ddf.init(generator, dev)
         if c.losses.vis_sigmoid_method == "learnable":
             scale = 1.0 if c.losses.vis_optimise_sigmoid_scale else c.visibility_sigmoid_scale
             params["visibility_sigmoid"] = {
@@ -202,13 +241,7 @@ class NeuSkyModel:
         rounds = len(c.proposal.num_proposal_samples) + 1
         if "proposal_jitters" not in d:
             d["proposal_jitters"] = [torch.rand((n_rays, 1), generator=generator, device=dev) for _ in range(rounds)]
-        if "proposal_stoch_u" not in d:
-            d["proposal_stoch_u"] = [
-                torch.rand((n_rays * s,), generator=generator, device=dev)
-                for s in c.proposal.num_proposal_samples
-            ]
-        if "sdf_salt" not in d:
-            d["sdf_salt"] = _u32_salt(generator, dev)
+        d.update(self.draw_ddf_gt(d, generator, n_rays))
         if "light_rotation" not in d:
             d["light_rotation"] = torch.randn((4,), generator=generator, device=dev)
         if c.losses.hashgrid_density:
@@ -219,6 +252,21 @@ class NeuSkyModel:
                 d["grid_dirs"] = torch.randn((r3, 3), generator=generator, device=dev)
             if "grid_salt" not in d:
                 d["grid_salt"] = _u32_salt(generator, dev)
+        return d
+
+    def draw_ddf_gt(self, draws: Optional[dict], generator: Optional[torch.Generator], n_rays: int) -> dict:
+        """Complete ``draws`` with the stochastic table gradients' draws of
+        one proposal-and-field pass over ``n_rays`` rays:
+        ``proposal_stoch_u`` and ``sdf_salt`` (all that
+        :meth:`generate_ddf_ground_truth` consumes)."""
+        d = dict(draws or {})
+        if "proposal_stoch_u" not in d:
+            d["proposal_stoch_u"] = [
+                torch.rand((n_rays * s,), generator=generator, device=self.device)
+                for s in self.config.proposal.num_proposal_samples
+            ]
+        if "sdf_salt" not in d:
+            d["sdf_salt"] = _u32_salt(generator, self.device)
         return d
 
     # ------------------------------------------------------------------
@@ -282,6 +330,116 @@ class NeuSkyModel:
         )
         return dirs, hdr_light, self.illumination.unnormalise(bg["rgb"])
 
+    def compute_visibility(
+        self,
+        params,
+        ray_samples: RaySamples,
+        p2p_depth: torch.Tensor,
+        illumination_directions: torch.Tensor,
+        threshold_distance: torch.Tensor,
+        sigmoid_scale: torch.Tensor,
+        stop_sdf_gradients: bool,
+        compute_sdf_at_termination: bool,
+        stoch_salt: Optional[torch.Tensor] = None,
+    ) -> dict:
+        """DDF visibility of each ray's surface point toward each light
+        direction: ``visibility`` [N, 1, D], ``difference`` [N, D],
+        ``expected_termination_dist`` [N·k] (+ ``sdf_at_termination``).
+
+        With ``only_upperhemisphere_visibility`` (and D > 8) only the top
+        k = min(D, D//2 + 8) directions by z are queried, in the order of
+        ``jax.lax.top_k`` (:func:`top_k_indices`); the lower hemisphere
+        takes the configured constant.  Surface points outside the DDF
+        sphere are pulled back just inside along their ray.
+        Each (point, direction) pair queries the DDF from where the ray
+        from the point leaves the sphere, looking back; the occlusion is a
+        sigmoid of how far the DDF's surface lies before the point.  The
+        SDF is evaluated at a strided subset of ``sdf_level_set_subset``
+        directions' termination points (all of them when 0)."""
+        c = self.config
+        r = c.ddf_radius
+        n = ray_samples.num_rays
+        dirs_full = illumination_directions
+        d_full = dirs_full.shape[0]
+        upper_prune = c.only_upperhemisphere_visibility and d_full > 8
+        dmask = None
+        if upper_prune:
+            top_idx = top_k_indices(dirs_full[:, 2], visibility_query_directions(c, d_full))
+            dirs = dirs_full[top_idx]
+            dmask = (dirs[:, 2] > 0).to(dirs.dtype)
+        else:
+            dirs = dirs_full
+            if c.only_upperhemisphere_visibility:
+                dmask = (dirs[:, 2] > 0).to(dirs.dtype)
+        d = dirs.shape[0]
+
+        origins = ray_samples.origins[:, 0, :]
+        ray_dirs = ray_samples.directions[:, 0, :]
+        positions = origins + ray_dirs * p2p_depth
+        inside = torch.linalg.norm(positions, dim=-1, keepdim=True) < r
+        boundary = ray_sphere_intersection(origins, ray_dirs, r) - 0.01 * r * ray_dirs
+        positions = torch.where(inside, positions, boundary)
+
+        pos_nd = torch.repeat_interleave(positions, d, dim=0)  # [N·D, 3]
+        dir_nd = dirs.repeat(n, 1)
+        sphere_pts = ray_sphere_intersection(pos_nd, dir_nd, r)
+        dist_to_origins = torch.clamp(torch.linalg.norm(sphere_pts - pos_nd, dim=-1), max=2.0 * r)
+
+        ddf_params = params["ddf_field"]
+        out = _chunked_apply(
+            lambda o, dd: self.ddf.apply(ddf_params, o, dd), (sphere_pts, -dir_nd),
+            c.visibility_query_chunk, c.visibility_remat_policy,
+        )
+        expected = out["expected_termination_dist"]  # [N·D]
+
+        difference = dist_to_origins - expected
+        occlusion = torch.sigmoid(sigmoid_scale * (difference - threshold_distance))
+        visibility = (1.0 - occlusion).reshape(n, d)
+        fill = 1.0 if c.lower_hemisphere_visibility else 0.0
+        if dmask is not None:
+            visibility = visibility * dmask[None, :] + fill * (1.0 - dmask[None, :])
+        difference = difference.reshape(n, d)
+        if upper_prune:
+            visibility = torch.full((n, d_full), fill, dtype=visibility.dtype, device=visibility.device
+                                    ).index_copy(1, top_idx, visibility)
+            difference = torch.zeros((n, d_full), dtype=difference.dtype, device=difference.device
+                                     ).index_copy(1, top_idx, difference)
+        result = {
+            "visibility": visibility[:, None, :],
+            "difference": difference,
+            "expected_termination_dist": expected,
+        }
+        if compute_sdf_at_termination:
+            term_points = sphere_pts + (-dir_nd) * expected[..., None]
+            field_params = params["fields"]
+            if stop_sdf_gradients:
+                field_params = tree_map(lambda t: t.detach(), field_params)
+            sub = c.sdf_level_set_subset
+            if sub and sub < d:
+                stride = d // sub
+                term_points = term_points.reshape(n, d, 3)[:, ::stride, :][:, :sub, :].reshape(-1, 3)
+            result["sdf_at_termination"] = self.field.sdf_only(field_params, term_points, stoch_salt)
+        return result
+
+    def _visibility_threshold(self, params, step: float) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(threshold distance, sigmoid scale) of the occlusion sigmoid:
+        learnable, exponentially decayed over the steps, or fixed."""
+        c = self.config
+        m = c.losses.vis_sigmoid_method
+        if m == "learnable":
+            vs = params["visibility_sigmoid"]
+            return vs["visibility_threshold"], vs["sigmoid_scale"]
+        scale = torch.tensor(c.visibility_sigmoid_scale, device=self.device)
+        if m == "exponential_decay":
+            start = c.ddf_radius * 2.0
+            end = c.losses.vis_target_min_bias
+            steps = c.losses.vis_steps_until_min_bias
+            if step >= steps:
+                return torch.tensor(end, device=self.device), scale
+            rate = -math.log(end / start) / steps
+            return start * torch.exp(torch.tensor(-rate * step, device=self.device)), scale
+        return torch.tensor(c.losses.vis_target_min_bias, device=self.device), scale
+
     def _hashgrid_density_samples(self, params, jitter, dirs, salt) -> torch.Tensor:
         """NeuS alphas on a perturbed regular grid (empty-space prior)."""
         c = self.config
@@ -313,8 +471,7 @@ class NeuSkyModel:
         draws: Optional[dict] = None,
         generator: Optional[torch.Generator] = None,
     ) -> Dict[str, Any]:
-        """The per-ray forward graph (JAX ``forward`` + ``_compose_outputs``
-        without visibility)."""
+        """The per-ray forward graph (JAX ``forward`` + ``_compose_outputs``)."""
         c = self.config
         if train:
             draws = self.draw(draws, generator, ray_bundle.num_rays)
@@ -339,9 +496,21 @@ class NeuSkyModel:
         )
         p2p = render_depth(weights, rs)
         accumulation = render_accumulation(weights)
+        vis_dict = None
+        if c.use_visibility and self.ddf is not None:
+            stop_depth = c.sdf_to_visibility_stop_gradients in ("depth", "both")
+            stop_sdf = c.sdf_to_visibility_stop_gradients in ("sdf", "both")
+            thr, sig_scale = self._visibility_threshold(params, step)
+            vis_dict = self.compute_visibility(
+                params, rs, p2p.detach() if stop_depth else p2p, illum_dirs, thr, sig_scale,
+                stop_sdf_gradients=stop_sdf,
+                compute_sdf_at_termination=c.losses.sdf_level_set_visibility,
+                stoch_salt=self._field_salt(draws.get("sdf_salt")),
+            )
         rgb = lambertian_composite(
             field_out["albedo"], field_out["normal"], illum_dirs, hdr_light,
-            None, hdr_background, weights, clip_output=not train,
+            vis_dict["visibility"] if vis_dict is not None else None, hdr_background, weights,
+            clip_output=not train,
         )
         normal = render_normal(weights, field_out["normal"])
         outputs = {
@@ -360,6 +529,10 @@ class NeuSkyModel:
             "weights_list": weights_list,
             "samples_list": samples_list,
         }
+        if vis_dict is not None:
+            outputs["visibility"] = vis_dict["visibility"]
+            if "sdf_at_termination" in vis_dict:
+                outputs["sdf_at_termination"] = vis_dict["sdf_at_termination"]
         for i in range(len(weights_list) - 1):
             outputs[f"prop_depth_{i}"] = render_depth(weights_list[i], samples_list[i])
         if train and c.losses.hashgrid_density:
@@ -367,6 +540,42 @@ class NeuSkyModel:
                 params, draws["grid_jitter"], draws["grid_dirs"], draws["grid_salt"]
             )
         return outputs
+
+    def generate_ddf_ground_truth(
+        self,
+        params,
+        ray_bundle: RayBundle,
+        mask_threshold: float = 0.0,
+        stop_gradients: bool = False,
+        draws: Optional[dict] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """The DDF's supervision rendered from the scene SDF: accumulation,
+        hit mask, termination distance (clamped to the sphere's diameter) and
+        normals.  The sampler runs in eval mode (no jitter) with the proposal
+        PDF un-annealed, as JAX's DDF-fit call (``step=None``) does.  With
+        ``stop_gradients=False`` (canonical) the DDF losses reach the SDF
+        field through it, by the stochastic table gradient of ``draws``
+        (:meth:`draw_ddf_gt`); the proposal encodes feed only the
+        resampling and take no gradient."""
+        c = self.config
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not stop_gradients):
+            d = {} if stop_gradients else self.draw_ddf_gt(draws, generator, ray_bundle.num_rays)
+            rb = self.apply_collider(ray_bundle)
+            rs, _, _ = proposal_sample(
+                rb, self.density_fns(params, d.get("proposal_stoch_u")), c.proposal, train=False, step=None,
+            )
+            field_out = self.field.field_outputs(
+                params["fields"], rs, True, c.cos_anneal_ratio, self._field_salt(d.get("sdf_salt")),
+            )
+            weights, _ = weights_and_transmittance_from_alphas(field_out["alpha"])
+            accum = render_accumulation(weights)
+            return {
+                "accumulations": accum,
+                "mask": (accum > mask_threshold).to(accum.dtype),
+                "termination_dist": torch.clamp(render_depth(weights, rs), max=2.0 * c.ddf_radius),
+                "normals": render_normal(weights, field_out["normal"]),
+            }
 
     # ------------------------------------------------------------------
 
@@ -412,6 +621,8 @@ class NeuSkyModel:
                     li.vis_target_min_bias, li.vis_target_max_scale,
                     li.vis_optimise_sigmoid_bias, li.vis_optimise_sigmoid_scale,
                 )
+            if li.sdf_level_set_visibility and "sdf_at_termination" in outputs:
+                ld["sdf_level_set_visibility_loss"] = torch.mean(outputs["sdf_at_termination"] ** 2)
         if li.sky_pixel and (train or c.eval_latent_optimise_method != "nerf_osr_envmap"):
             ld["sky_pixel_loss"] = L.sky_pixel_loss(
                 linear_to_sRGB(outputs["hdr_background_colours"]),

@@ -101,9 +101,13 @@ def _levels_case(kind: str):
     """(rows [L, M] int32, vals [L, 2, M], T): only dense-sized levels (rows
     past the table included: dropped), only hashed levels, a mixed
     pyramid with an encoding's own rows in ray order (runs of equal rows),
-    and one level that takes heavy duplicates.  No M is a multiple of the
-    block."""
-    rng = np.random.default_rng({"dense_only": 0, "hashed_only": 1, "mixed_pyramid": 2, "heavy_duplicates": 3}[kind])
+    one level that takes heavy duplicates, and the joint step's two SDF
+    query sites: the level-set query (1,024 rays × 64 termination points,
+    one sampled corner each) and the DDF-fit query (1,024 points, all eight
+    corners).  No other M is a multiple of the block."""
+    seeds = {"dense_only": 0, "hashed_only": 1, "mixed_pyramid": 2, "heavy_duplicates": 3,
+             "level_set_sdf": 4, "ddf_fit_sdf_exact": 5}
+    rng = np.random.default_rng(seeds[kind])
     if kind == "dense_only":
         t, m = 4913, 5001
         rows = np.stack([rng.integers(0, r, m) for r in (125, 729, t + 40)])
@@ -119,6 +123,17 @@ def _levels_case(kind: str):
         idx, _, _ = enc._all_iw(torch.from_numpy(x.T.astype(np.float32)), need_dw=False)
         m = n_rays * s
         rows = torch.gather(idx, 1, torch.from_numpy(rng.integers(0, 8, (16, 1, m)))).numpy()[:, 0]
+    elif kind in ("level_set_sdf", "ddf_fit_sdf_exact"):
+        enc = hg.HashGridEncoding(hg.HashGridConfig(num_levels=16, log2_hashmap_size=19))
+        t, n = 1 << 19, (1024 * 64 if kind == "level_set_sdf" else 1024)
+        x = rng.uniform(0.2, 0.8, (n, 3)).astype(np.float32)
+        idx, _, _ = enc._all_iw(torch.from_numpy(x.T.copy()), need_dw=False)  # [16, 8, n]
+        if kind == "level_set_sdf":
+            m = n
+            rows = torch.gather(idx, 1, torch.from_numpy(rng.integers(0, 8, (16, 1, m)))).numpy()[:, 0]
+        else:
+            m = 8 * n
+            rows = idx.reshape(16, m).numpy()
     else:
         t, m = 1 << 19, 262_144 + 3
         rows = rng.integers(0, 17**2, (1, m))
@@ -127,7 +142,8 @@ def _levels_case(kind: str):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["dense_only", "hashed_only", "mixed_pyramid", "heavy_duplicates"])
+@pytest.mark.parametrize("kind", ["dense_only", "hashed_only", "mixed_pyramid", "heavy_duplicates",
+                                  "level_set_sdf", "ddf_fit_sdf_exact"])
 def test_k1_all_levels_match_plain(cuda_device, kind):
     """One launch writes the whole [L, 2, T] output, zero rows included: the
     output's memory is filled with NaN just before, so any cell the kernel

@@ -52,10 +52,6 @@ def _entry_points():
     from neusky_torch.models.pipeline import PipelineConfig
 
     cfg = neusky_model_config(2, 1)
-    cfg = dataclasses.replace(
-        cfg, ddf=None, use_visibility=False, fit_visibility_field=False,
-        losses=dataclasses.replace(cfg.losses, sdf_level_set_visibility=False),
-    )
     scene = generate_synthetic_scene(SyntheticSceneConfig(num_cameras=2, width=8, height=8))
     return {
         "model": lambda: NeuSkyModel(cfg),
@@ -79,23 +75,26 @@ def test_entry_point_without_cpu_raises_when_cuda_absent(name, monkeypatch):
 
 def _jax_config_classes():
     from neusky_tpu.engine.optimizers import OptimizerGroupConfig
+    from neusky_tpu.fields.ddf import DDFFieldConfig
     from neusky_tpu.fields.density_field import DensityFieldConfig
     from neusky_tpu.fields.reni import RENIFieldConfig
     from neusky_tpu.fields.sdf_albedo import SDFAlbedoFieldConfig
+    from neusky_tpu.models.ddf_model import DDFLossConfig, DDFModelConfig
     from neusky_tpu.models.neusky import LossInclusions, NeuSkyModelConfig
     from neusky_tpu.models.pipeline import PipelineConfig
     from neusky_tpu.ops.hashgrid import HashGridConfig
+    from neusky_tpu.sampling.ddf_sampler import DDFSamplerConfig
     from neusky_tpu.sampling.proposal import ProposalSamplerConfig
 
     return {c.__name__: c for c in (
         HashGridConfig, DensityFieldConfig, SDFAlbedoFieldConfig, RENIFieldConfig,
         ProposalSamplerConfig, LossInclusions, NeuSkyModelConfig, PipelineConfig,
-        OptimizerGroupConfig,
+        OptimizerGroupConfig, DDFFieldConfig, DDFLossConfig, DDFModelConfig, DDFSamplerConfig,
     )}
 
 
-# defaults that are placeholders in the port until the DDF slice
-_PLACEHOLDERS = {("NeuSkyModelConfig", "ddf"), ("PipelineConfig", "visibility_train_sampler")}
+# defaults of the port that are placeholders for a JAX default not ported yet
+_PLACEHOLDERS = set()
 
 
 @pytest.mark.parametrize("name", sorted(TORCH_CONFIGS))
@@ -118,17 +117,12 @@ def test_canonical_config_matches_jax():
     from neusky_tpu.configs.neusky_config import neusky_model_config as j_cfg
     from torch_parity import to_torch_config
 
-    jc = j_cfg(8, 2)
-    jc = dataclasses.replace(
-        jc, ddf=None, use_visibility=False, fit_visibility_field=False,
-        losses=dataclasses.replace(jc.losses, sdf_level_set_visibility=False),
-    )
-    tc = t_cfg(8, 2)
-    tc = dataclasses.replace(
-        tc, use_visibility=False, fit_visibility_field=False,
-        losses=dataclasses.replace(tc.losses, sdf_level_set_visibility=False),
-    )
-    assert to_torch_config(jc) == tc
+    from neusky_torch.configs.neusky_config import neusky_pipeline_config as t_pipe
+    from neusky_tpu.configs.neusky_config import neusky_pipeline_config as j_pipe
+
+    assert to_torch_config(j_cfg(8, 2)) == t_cfg(8, 2)
+    assert t_cfg(8, 2).ddf is not None
+    assert to_torch_config(j_pipe()) == t_pipe()
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Shared helpers for the ``test_torch_*`` parity tests: JAX params and
-configs → the port's, and the JAX key tree of one scene training step →
-the port's explicit draws."""
+configs → the port's, and the JAX key tree of one training step → the
+port's explicit draws (the scene half and the DDF half)."""
 
 from __future__ import annotations
 
@@ -13,12 +13,15 @@ import torch
 
 from neusky_torch.convert import convert_params
 from neusky_torch.engine import optimizers as t_opt
+from neusky_torch.fields import ddf as t_ddf
 from neusky_torch.fields import density_field as t_df
 from neusky_torch.fields import reni as t_reni
 from neusky_torch.fields import sdf_albedo as t_sdf
+from neusky_torch.models import ddf_model as t_ddf_model
 from neusky_torch.models import neusky as t_neusky
 from neusky_torch.models import pipeline as t_pipe
 from neusky_torch.ops import hashgrid as t_hash
+from neusky_torch.sampling import ddf_sampler as t_ddf_sampler
 from neusky_torch.sampling import proposal as t_prop
 
 TORCH_CONFIGS = {
@@ -27,6 +30,8 @@ TORCH_CONFIGS = {
         t_hash.HashGridConfig, t_df.DensityFieldConfig, t_sdf.SDFAlbedoFieldConfig,
         t_reni.RENIFieldConfig, t_prop.ProposalSamplerConfig, t_neusky.LossInclusions,
         t_neusky.NeuSkyModelConfig, t_pipe.PipelineConfig, t_opt.OptimizerGroupConfig,
+        t_ddf.DDFFieldConfig, t_ddf_model.DDFLossConfig, t_ddf_model.DDFModelConfig,
+        t_ddf_sampler.DDFSamplerConfig,
     )
 }
 
@@ -90,6 +95,61 @@ def jax_scene_draws(cfg_j, rng, n_rays: int) -> dict:
     draws["grid_dirs"] = t(jax.random.normal(k2, (res**3, 3)))
     draws["grid_salt"] = u32_tensor(jax.random.bits(jax.random.split(k2)[0], dtype=jnp.uint32))
     return draws
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a))
+
+
+def jax_sphere_uniforms(rng, n: int):
+    """The uniforms of ``random_points_on_unit_sphere(rng, n)``."""
+    k_t, k_p = jax.random.split(rng)
+    return _t(jax.random.uniform(k_t, (n,))), _t(jax.random.uniform(k_p, (n,)))
+
+
+def jax_vmf_draws(rng, sampler) -> dict:
+    """The draws of ``vmf_ddf_samples(rng, sampler)``: the sphere points'
+    uniforms from ``split(rng)[0]``, then ``sample_vmf(split(rng)[1])``'s
+    uniforms in [1e-7, 1) and tangent normals."""
+    p, m = sampler.num_samples_on_sphere, sampler.num_rays_per_sample
+    k_p, k_d = jax.random.split(rng)
+    k_u, k_t = jax.random.split(k_d)
+    return {
+        "sphere_u": jax_sphere_uniforms(k_p, p),
+        "vmf_u": _t(jax.random.uniform(k_u, (p, m), minval=1e-7, maxval=1.0)),
+        "vmf_z": _t(jax.random.normal(k_t, (p, m, 3))),
+    }
+
+
+def jax_gt_draws(cfg_j, rng, n_rays: int) -> dict:
+    """The draws of ``generate_ddf_ground_truth(rng)`` (stop_gradients
+    off): ``split(rng)[1]`` = k_stoch → the proposal fields' ``stoch_u``
+    and the SDF salt."""
+    _, k_stoch = jax.random.split(rng)
+    skeys = jax.random.split(k_stoch, len(cfg_j.proposal_fields))
+    return {
+        "proposal_stoch_u": [_t(jax.random.uniform(skeys[i], (n_rays * s,)))
+                             for i, s in enumerate(cfg_j.proposal.num_proposal_samples)],
+        "sdf_salt": u32_tensor(jax.random.bits(k_stoch, dtype=jnp.uint32)),
+    }
+
+
+def jax_ddf_draws(cfg_j, pcfg_j, rng) -> dict:
+    """The draws that ``neusky_tpu`` ``train_loss_fn(rng)`` makes in its
+    DDF half (unfused), re-derived from the same key tree:
+    train_loss_fn → split(2)[1] = k_ddf → split(k_ddf, 3) = (k_vis_sample,
+    k_vis_gt, k_ddf'); the vMF rays from k_vis_sample, the GT pass from
+    k_vis_gt, and the multi-view sphere points from split(k_ddf')[0]
+    (``ddf_train_outputs``).  Goes under ``draws["ddf"]``."""
+    _, k_ddf = jax.random.split(rng)
+    k_vis_sample, k_vis_gt, k3 = jax.random.split(k_ddf, 3)
+    s = pcfg_j.visibility_train_sampler
+    n = s.num_samples_on_sphere * s.num_rays_per_sample
+    return {
+        "vmf": jax_vmf_draws(k_vis_sample, s),
+        "gt": jax_gt_draws(cfg_j, k_vis_gt, n),
+        "multi_view_u": jax_sphere_uniforms(jax.random.split(k3)[0], n),
+    }
 
 
 def max_rel_err(a, b) -> float:
