@@ -31,7 +31,20 @@ Phases (any failure exits non-zero; no phase's failure is passed over):
    one more step keeps the inputs K1 takes there, and K1 is held against
    its plain version and timed on them; one more step runs under
    ``torch.profiler`` (device time by kind);
-6. one JSON line listing every kernel (K1 per joint step, on the joint
+6. the eval and checkpoint path at canonical width: the joint
+   configuration with 2 eval slots, the train ring and an eval ring of 2
+   cameras (π/8, height 0.5; 64×64), ``Trainer`` saving every 2 steps and
+   evaluating every 4 (fit of both eval slots, render and scores) over 4
+   steps; a fresh ``Trainer`` resumed from the step-4 checkpoint (params,
+   Adam state and step bit for bit; the next step's losses to 1e-5); the
+   250-step eval-latent fit (1,024 region rays a step; the loss falls) and
+   the render of a 64×64 eval image in one chunk of 4,096 rays (DDF
+   visibility over 4,096 × 254 queries), with PSNR, SSIM, LPIPS, rays/s,
+   fps and the peak device memory; K1's count is zeroed before each part
+   and must be 7 a training step and 0 in the fit and the render; 10 fit
+   steps and one render run under ``torch.profiler``; then a small fit and
+   render on the card against the CPU;
+7. one JSON line listing every kernel (K1 per joint step, on the joint
    path's own inputs), the card line, and the final
    ``{"ok": true, "device": ...}`` line.
 """
@@ -43,8 +56,10 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -53,7 +68,11 @@ from neusky_torch.configs.neusky_config import neusky_model_config, neusky_pipel
 from neusky_torch.data.datamanager import DataManager, DataManagerConfig
 from neusky_torch.data.pixel_sampler import PixelSamplerConfig
 from neusky_torch.data.synthetic import SyntheticSceneConfig, generate_synthetic_scene
-from neusky_torch.engine.checkpoint import prior_asset_path
+from neusky_torch.engine import metrics
+from neusky_torch.engine.checkpoint import load_illumination_prior, prior_asset_path
+from neusky_torch.engine.eval_loop import (
+    average_eval_metrics, eval_image_metrics, fit_eval_latents, make_render_chunk_fn, render_camera,
+)
 from neusky_torch.engine.trainer import Trainer, TrainerConfig
 from neusky_torch.models.neusky import NeuSkyModel, visibility_query_directions
 from neusky_torch.models.pipeline import draw_ddf_fit, train_loss_fn
@@ -462,7 +481,7 @@ def run_path(label: str, cfg, pcfg, steps: int, card: str, require_groups=()):
         check(not k.startswith("illumination_decoder/") or torch.equal(start[k], v), f"frozen {k} changed")
     log(f"{label} trainable groups changed: " + ", ".join(changed) + "; the decoder stayed frozen")
     captured = capture_k1_inputs(trainer)
-    profile_step(trainer, steady, card, label)
+    profile_call(lambda: trainer.run(1), steady, card, f"{label} step")
     return launches, captured
 
 
@@ -479,14 +498,15 @@ KERNEL_KINDS = (
 )
 
 
-def profile_step(trainer: Trainer, steady_s: float, card: str, label: str, top: int = 15):
-    """One more step under ``torch.profiler``: device time by kernel name,
-    its sum against the steady (unprofiled) step time, and K1's share."""
+def profile_call(fn, wall_s: float, card: str, label: str, top: int = 15):
+    """``fn()`` once more under ``torch.profiler``: device time by kernel
+    name, its sum against ``wall_s`` (the unprofiled wall time of the same
+    work), and K1's share."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        trainer.run(1)
+        fn()
         torch.cuda.synchronize()
     by_name, longest = {}, {}
     for e in prof.events():
@@ -497,7 +517,7 @@ def profile_step(trainer: Trainer, steady_s: float, card: str, label: str, top: 
             by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
             longest[e.name] = max(longest.get(e.name, 0.0), e.time_range.elapsed_us())
     if not by_name:
-        log("step profile: the profiler saw no device events; device time not measured")
+        log(f"{label} profile: the profiler saw no device events; device time not measured")
         return
     device_ms = sum(us for _, us in by_name.values()) / 1e3
     n_kernels = sum(n for n, _ in by_name.values())
@@ -507,8 +527,8 @@ def profile_step(trainer: Trainer, steady_s: float, card: str, label: str, top: 
     cat = [name for name in by_name if "CatArrayBatchedCopy" in name]
     cat_n, cat_us = sum(by_name[k][0] for k in cat), sum(by_name[k][1] for k in cat)
     cat_max = max((longest[k] for k in cat), default=0.0)
-    log(f"{label} step profile ({card}): device busy {device_ms:.3f} ms of the {steady_s * 1e3:.3f} ms steady step "
-        f"({device_ms / (steady_s * 1e3):.3f}); {n_kernels} device ops under {len(by_name)} names; "
+    log(f"{label} profile ({card}): device busy {device_ms:.3f} ms of the {wall_s * 1e3:.3f} ms unprofiled wall time "
+        f"({device_ms / (wall_s * 1e3):.3f}); {n_kernels} device ops under {len(by_name)} names; "
         f"K1 {k1_ms:.3f} ms; CatArrayBatchedCopy {cat_us / 1e3:.3f} ms ({cat_n}x, longest {cat_max:.1f} us)")
     by_kind = {}
     for name, (n, us) in by_name.items():
@@ -519,6 +539,186 @@ def profile_step(trainer: Trainer, steady_s: float, card: str, label: str, top: 
                                   for k, (n, us) in sorted(by_kind.items(), key=lambda kv: -kv[1][1])))
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
         log(f"  {us / 1e3:9.3f} ms  {n:5d}x  {name[:110]}")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the eval and checkpoint path
+
+
+EVAL_RING = dict(angle_offset=math.pi / 8.0, camera_height=0.5)  # tools/train_sanity.py's eval split
+EVAL_FIT_STEPS = 250
+
+
+def eval_datamanager(device, train_cams=8, eval_cams=2, px=64, rays=(8, 128), sky=256):
+    """The synthetic train ring and the eval ring, ``rays`` = (images per
+    batch, rays per image): a fit step takes their product in region rays."""
+    ts = generate_synthetic_scene(SyntheticSceneConfig(num_cameras=train_cams, width=px, height=px))
+    es = generate_synthetic_scene(SyntheticSceneConfig(num_cameras=eval_cams, width=px, height=px, **EVAL_RING))
+    return DataManager(DataManagerConfig(pixel_sampler=PixelSamplerConfig(*rays), num_sky_rays=sky),
+                       ts["cameras"], ts["images"], ts["masks"], eval_cameras=es["cameras"],
+                       eval_images=es["images"], eval_masks=es["masks"], device=device)
+
+
+def k1_launches() -> int:
+    return k1.launches[k1.KERNEL_NAME]
+
+
+def measured(fn):
+    """(fn(), seconds, peak device GiB) with the card idle before and after."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+
+
+def _equal_state(a, b) -> bool:
+    if isinstance(a, dict):
+        return sorted(a) == sorted(b) and all(_equal_state(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_equal_state(x, y) for x, y in zip(a, b))
+    if torch.is_tensor(a):
+        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.cpu(), b.cpu())
+    return a == b
+
+
+def train_save_resume(cfg, pcfg, out_dir: str, card: str, expected: int) -> Trainer:
+    """4 steps saving every 2 and evaluating at 4, then a resumed trainer
+    against the original on one more step."""
+    make = lambda d: Trainer(TrainerConfig(max_num_iterations=100001, steps_per_log=1, steps_per_save=2,
+                                           steps_per_eval_image=4, output_dir=d, seed=0),
+                             NeuSkyModel(cfg, device="cuda"), pcfg, eval_datamanager("cuda"), device="cuda")
+    trainer = make(out_dir)
+    k1.launches[k1.KERNEL_NAME] = 0
+    per_step = []
+    for s in range(4):
+        before = k1_launches()
+        hist, dt, _ = measured(lambda: trainer.run(1))
+        rec = next(r for r in reversed(hist) if "total_loss" in r)
+        per_step.append(k1_launches() - before)
+        log(f"eval path train step {s + 1}: {dt * 1e3:.1f} ms ({card}); K1 launches {per_step[-1]}; "
+            f"total loss {rec['total_loss']:.6f}" + ("; with the eval pass" if s == 3 else ""))
+    check(per_step == [expected] * 4, f"eval path: K1 launches per step {per_step}, expected {expected}")
+    saved = sorted(p.name for p in (Path(out_dir) / "checkpoints").iterdir())
+    check(saved == ["step-000000002", "step-000000004"], f"checkpoints written: {saved}")
+    evals = [r for r in trainer.history if "eval_psnr" in r]
+    check(len(evals) == 1 and evals[0]["step"] == 4 and all(math.isfinite(v) for v in evals[0].values()),
+          f"eval records: {evals}")
+    log(f"eval pass at step 4 ({card}): " + json.dumps(evals[0]))
+
+    resumed = make(str(Path(out_dir) / "resumed"))
+    resumed.load(out_dir, 4)
+    orig, back = dict(tree_items(trainer.params)), dict(tree_items(resumed.params))
+    check(resumed.step == 4 and all(torch.equal(back[k], v) for k, v in orig.items()),
+          "resumed params differ from the saved ones")
+    check(_equal_state(resumed.optimizer.state_dict(), trainer.optimizer.state_dict()),
+          "resumed Adam state differs from the saved one")
+    trainer.datamanager.reseed(4)
+    resumed.generator.set_state(trainer.generator.get_state())
+    k1.launches[k1.KERNEL_NAME] = 0
+    a = trainer.run(1)[-1]
+    n_a = k1_launches()
+    b = resumed.run(1)[-1]
+    n_b = k1_launches() - n_a
+    check(n_a == n_b == expected, f"K1 launches on the step after the resume: {n_a}, {n_b}")
+    losses = [k for k in a if k.endswith("_loss")]
+    worst = max(abs(b[k] - a[k]) / max(abs(a[k]), 1e-12) for k in losses)
+    check(worst <= 1e-5, f"resumed step's losses differ by {worst:.3g} relative")
+    with torch.no_grad():
+        drift = max(float((back[k] - v).abs().max()) for k, v in tree_items(trainer.params))
+    log(f"checkpoint round trip: params ({len(orig)} leaves), Adam state and step bit for bit; step 5: "
+        f"total loss {a['total_loss']:.6f} vs resumed {b['total_loss']:.6f}, worst loss rel diff {worst:.3g}, "
+        f"worst param diff after the update {drift:.3g}; K1 launches {n_a} and {n_b}")
+    return trainer
+
+
+def run_eval_path(card: str):
+    """Phase 6: see the module docstring."""
+    cfg, pcfg = neusky_model_config(8, 2), neusky_pipeline_config()
+    expected = expected_launches_per_step(cfg, pcfg)
+    with tempfile.TemporaryDirectory() as out_dir:
+        trainer = train_save_resume(cfg, pcfg, out_dir, card, expected)
+    model, params, dm = trainer.model, trainer.params, trainer.datamanager
+    rays = dm.config.pixel_sampler.images_per_batch * dm.config.pixel_sampler.rays_per_image
+    resident = torch.cuda.memory_allocated() / 2**30
+
+    k1.launches[k1.KERNEL_NAME] = 0
+    (fit_params, losses), fit_s, fit_peak = measured(lambda: fit_eval_latents(model, params, dm, steps=EVAL_FIT_STEPS))
+    (_, short), short_s, _ = measured(lambda: fit_eval_latents(model, params, dm, steps=50))
+    fit_launches = k1_launches()
+    check(fit_launches == 0, f"K1 launched {fit_launches} times in the eval-latent fit")
+    # each step draws a new batch: compare the means of the first and last 25
+    check(all(math.isfinite(x) for x in losses) and np.mean(losses[-25:]) < np.mean(losses[:25]),
+          f"the fit loss does not fall: {losses[:3]} … {losses[-3:]}")
+    steady_ms = (fit_s - short_s) / (EVAL_FIT_STEPS - 50) * 1e3
+    log(f"eval fit ({card}): {EVAL_FIT_STEPS} steps of {rays} region rays in {fit_s:.3f} s, steady "
+        f"{steady_ms:.3f} ms/step (from the 50-step fit's {short_s:.3f} s); loss {losses[0]:.6f} -> "
+        f"{losses[-1]:.6f} (mean of the first/last 25: {np.mean(losses[:25]):.6f} / {np.mean(losses[-25:]):.6f}); "
+        f"peak device memory {fit_peak:.3f} GiB ({resident:.3f} GiB resident before); K1 launches {fit_launches}")
+
+    chunk_fn, chunk = make_render_chunk_fn(model, 4096)
+    k1.launches[k1.KERNEL_NAME] = 0
+    m, _, render_peak = measured(lambda: eval_image_metrics(model, fit_params, dm, 0, chunk_fn, chunk))
+    avg = average_eval_metrics(model, fit_params, dm, chunk_size=4096, fit_latents_first=False)
+    render_launches = k1_launches()
+    check(render_launches == 0, f"K1 launched {render_launches} times in the render")
+    out = m.pop("outputs")
+    h = dm.eval_cameras.height * dm.eval_cameras.width
+    for k, c in (("rgb", 3), ("depth", 1), ("accumulation", 1), ("normal", 3), ("albedo", 3)):
+        check(out[k].shape == (h, c) and np.isfinite(out[k]).all(), f"render {k}: {out[k].shape}")
+    check(out["rgb"].min() >= 0 and out["rgb"].max() <= 1 and out["accumulation"].min() >= 0
+          and out["accumulation"].max() <= 1 + 1e-5, "render rgb or accumulation out of [0, 1]")
+    check(all(math.isfinite(v) for v in list(m.values()) + list(avg.values())), f"eval metrics {m} {avg}")
+    d = visibility_query_directions(cfg, model.num_directions)
+    log(f"eval render ({card}): {h} rays in one chunk of {chunk}, DDF visibility over {h} × {d} = {h * d:,} "
+        f"queries; image 0: PSNR {m['psnr']:.4f}, SSIM {m['ssim']:.4f}, LPIPS {m['lpips']:.4f} "
+        f"({metrics.lpips_flavour()}), MSE {m['mse']:.6f}, {m['num_rays_per_sec']:.1f} rays/s, {m['fps']:.3f} fps; "
+        f"peak device memory {render_peak:.3f} GiB; K1 launches {render_launches}")
+    log(f"average_eval_metrics over {dm.num_eval} eval images ({card}): " + json.dumps(avg))
+
+    # where the time goes: 10 fit steps and one render, unprofiled then profiled
+    fit10 = lambda: fit_eval_latents(model, params, dm, steps=10)
+    _, fit10_s, _ = measured(fit10)
+    profile_call(fit10, fit10_s, card, "eval fit (10 steps)", top=8)
+    rb = dm.eval_image_bundle(0)[0]
+    render = lambda: render_camera(model, fit_params, rb, 0, chunk_fn, chunk)
+    _, render_s, _ = measured(render)
+    profile_call(render, render_s, card, "eval render (4,096 rays)", top=8)
+    del trainer, model, params, fit_params
+
+
+def check_eval_cuda_vs_cpu(card: str):
+    """5 fit steps and the render of a 16×16 eval image from the same
+    params and batches on the card and on the CPU (plain versions): the
+    eval latents to 1e-4 of scale, ``rgb``, ``depth`` and ``accumulation``
+    to 1e-4, the metrics to 1e-4 relative.  The card half runs with
+    cuDNN's TF32 on (PyTorch's default), which LPIPS must ignore."""
+    cfg, _ = small_configs(joint=True)
+    cfg = dataclasses.replace(cfg, num_eval_data=2)
+    params0 = load_illumination_prior(NeuSkyModel(cfg, device="cpu").init(torch.Generator().manual_seed(3)), cfg)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        model = NeuSkyModel(cfg, device=dev)
+        params = tree_map(lambda x: x.detach().clone().to(dev), params0)
+        dm = eval_datamanager(dev, train_cams=2, px=16, rays=(2, 16), sky=8)
+        torch.backends.cudnn.allow_tf32 = dev == "cuda"
+        try:
+            fit, losses = fit_eval_latents(model, params, dm, steps=5)
+            m = eval_image_metrics(model, fit, dm, 0)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        got[dev] = ({k: v.detach().cpu() for k, v in fit["eval_latents"].items()}, losses, m)
+    (lat_c, loss_c, m_c), (lat_g, loss_g, m_g) = got["cpu"], got["cuda"]
+    lat_err = max(float((lat_g[k] - lat_c[k]).abs().max() / lat_c[k].abs().max()) for k in ("eval_latents", "eval_scale"))
+    map_err = {k: float(np.abs(m_g["outputs"][k] - m_c["outputs"][k]).max()) for k in ("rgb", "depth", "accumulation")}
+    met_err = {k: abs(m_g[k] - m_c[k]) / max(abs(m_c[k]), 1e-12) for k in ("psnr", "ssim", "mse", "lpips")}
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(loss_g, loss_c))
+    log(f"small eval on the card vs the CPU ({card}): eval latents {lat_err:.3g} of scale, fit losses {loss_err:.3g} "
+        f"relative, maps " + json.dumps({k: float(f"{v:.3g}") for k, v in map_err.items()})
+        + ", metrics " + json.dumps({k: float(f"{v:.3g}") for k, v in met_err.items()}))
+    check(lat_err <= 1e-4 and loss_err <= 1e-4 and max(map_err.values()) <= 1e-4 and max(met_err.values()) <= 1e-4,
+          "the eval path on the card differs from the CPU")
 
 
 # ---------------------------------------------------------------------------
@@ -544,6 +744,9 @@ def main() -> int:
                                        require_groups=("ddf_field", "visibility_sigmoid"))
     # the kernels line: K1 per joint step, on the inputs the main path gave it
     sites = check_k1_main_path_inputs(joint_cfg, joint_pcfg, 8 * 128, captured)
+    del captured
+    run_eval_path(card)
+    check_eval_cuda_vs_cpu(card)
     per_step = lambda key: sum(r[key] * r["launches_per_step"] for r in sites)
     kernels = [{
         "name": k1.KERNEL_NAME,

@@ -63,6 +63,10 @@ class RayBundle:
             directions_norm=directions_norm,
         )
 
+    def slice(self, start: int, size: int) -> "RayBundle":
+        """Rays ``start`` … ``start + size`` (fewer at the end)."""
+        return RayBundle(**{f.name: getattr(self, f.name)[start:start + size] for f in dataclasses.fields(self)})
+
 
 @dataclasses.dataclass(frozen=True)
 class RaySamples:

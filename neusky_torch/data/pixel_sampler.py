@@ -81,3 +81,18 @@ class PixelSampler:
         ys = (flat // self.width).astype(np.float32) + 0.5
         xs = (flat % self.width).astype(np.float32) + 0.5
         return rows.astype(np.int32), np.stack([ys, xs], axis=-1)
+
+    def sample_region_batch(self, image_row: int, region: str = "full_image") -> Dict:
+        """Eval-latent fitting batch of U·R pixels of one image, drawn
+        uniformly from its ``"left_image_half"``, ``"right_image_half"`` or
+        (otherwise) ``"full_image"``."""
+        c = self.config
+        r = c.images_per_batch * c.rays_per_image
+        if region == "left_image_half":
+            xs = self.rng.integers(0, self.width // 2, size=r)
+        elif region == "right_image_half":
+            xs = self.rng.integers(self.width // 2, self.width, size=r)
+        else:
+            xs = self.rng.integers(0, self.width, size=r)
+        ys = self.rng.integers(0, self.height, size=r)
+        return self._pixels_to_batch(np.asarray([image_row]), (ys * self.width + xs).reshape(1, r))

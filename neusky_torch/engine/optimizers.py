@@ -6,18 +6,19 @@ Five Adam groups (eps 1e-15) with per-group cosine/exponential schedules;
 ``set_to_zero``): their tensors get ``requires_grad_(False)`` and no
 optimizer state.  Each schedule is evaluated at optax's update count —
 the number of updates applied before this one, so the first update uses
-``schedule(0)``.
+``schedule(0)``.  :func:`build_eval_latent_optimizer` is the test-time
+fit's Adam over the eval group alone.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import torch
 
-from neusky_torch.tree import tree_leaves
+from neusky_torch.tree import tree_items
 
 
 def cosine_decay_schedule(lr_init: float, max_steps: int, warm_up_end: int = 500,
@@ -91,18 +92,21 @@ def param_group_label(path_key: str) -> str:
 class GroupedAdam:
     """``torch.optim.Adam`` over the trainable groups, with each group's
     learning rate set from its schedule before every update.  Updates the
-    parameter tensors in place (JAX returns new arrays)."""
+    parameter tensors in place (JAX returns new arrays).  ``label_fn`` maps
+    a leaf's ``"a/b/c"`` path to its group (default: the top-level key's
+    :func:`param_group_label`); leaves of no group in ``groups`` are
+    frozen."""
 
-    def __init__(self, params: Dict[str, dict], groups: Dict[str, OptimizerGroupConfig]):
-        labels = {k: param_group_label(k) for k in params}
+    def __init__(self, params: Dict[str, dict], groups: Dict[str, OptimizerGroupConfig],
+                 label_fn: Optional[Callable[[str], str]] = None):
+        label_fn = label_fn or (lambda path: param_group_label(path.split("/")[0]))
+        labelled = [(label_fn(path), t) for path, t in tree_items(params)]
+        for label, t in labelled:
+            t.requires_grad_(label in groups)
         torch_groups: List[dict] = []
         self.schedules: List[Callable[[int], float]] = []
-        for k, label in labels.items():
-            trainable = label in groups
-            for t in tree_leaves(params[k]):
-                t.requires_grad_(trainable)
         for name, g in groups.items():
-            leaves = [t for k in params if labels[k] == name for t in tree_leaves(params[k])]
+            leaves = [t for label, t in labelled if label == name]
             if not leaves:
                 continue
             torch_groups.append({"params": leaves, "lr": 0.0, "eps": g.eps, "name": name})
@@ -126,4 +130,34 @@ class GroupedAdam:
                     p.grad = torch.zeros_like(p)
         self.optimizer.step()
         self.count += 1
+
+    def state_dict(self) -> dict:
+        """The Adam moments and step counts (by parameter position) and the
+        update count the schedules read."""
+        return {"adam": self.optimizer.state_dict(), "count": self.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.optimizer.load_state_dict(state["adam"])
+        self.count = int(state["count"])
+
+
+def build_eval_latent_optimizer(
+    params: Dict[str, dict], lr: float = 1e-1, lr_final: float = 1e-7, max_steps: int = 250,
+    eps: float = 1e-15, scale_only: bool = False,
+) -> GroupedAdam:
+    """Adam with the exponential decay ``lr`` → ``lr_final`` over
+    ``max_steps`` for test-time latent fitting, over the ``eval_latents``
+    group only (``eval_latents``, ``eval_scale``, ``eval_rotation``);
+    ``scale_only`` moves ``eval_scale`` alone.  Every other leaf of
+    ``params`` is frozen."""
+    group = {"eval": OptimizerGroupConfig(lr=lr, eps=eps, schedule="exponential", lr_final=lr_final,
+                                          max_steps=max_steps)}
+
+    def label_fn(path: str) -> str:
+        top, *rest = path.split("/")
+        if top != "eval_latents" or (scale_only and rest != ["eval_scale"]):
+            return "frozen"
+        return "eval"
+
+    return GroupedAdam(params, group, label_fn)
 

@@ -66,7 +66,7 @@ def so2_invariant_features(directions: torch.Tensor, latents: torch.Tensor):
 
 
 class RENIField:
-    """``apply(params, directions, latents, scale)`` → {"rgb"}."""
+    """``apply(params, directions, latents, scale, rotation)`` → {"rgb"}."""
 
     def __init__(self, config: RENIFieldConfig):
         if config.conditioning != "Attention":
@@ -95,12 +95,19 @@ class RENIField:
         directions: torch.Tensor,
         latents: torch.Tensor,
         scale: Optional[torch.Tensor] = None,
+        rotation: Optional[torch.Tensor] = None,
     ) -> dict:
-        """directions [M, 3]; latents [M, D, 3] or [D, 3]; scale [M]."""
+        """directions [M, 3]; latents [M, D, 3] or [D, 3]; scale [M];
+        rotation [3, 3] (``directions @ R``) or [M, 3, 3] (``R_m d_m``)."""
         c = self.config
         m = directions.shape[0]
         if latents.dim() == 2:
             latents = latents[None].expand(m, *latents.shape)
+        if rotation is not None:
+            if rotation.dim() == 2:
+                directions = directions @ rotation
+            else:
+                directions = torch.einsum("mij,mj->mi", rotation, directions)
         if scale is not None:
             latents = latents * scale.reshape(-1, 1, 1)
         dir_feats, latent_tokens = so2_invariant_features(directions, latents)

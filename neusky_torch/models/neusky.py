@@ -169,14 +169,16 @@ def top_k_indices(values: torch.Tensor, k: int) -> torch.Tensor:
 
 def _chunked_apply(fn, args: Tuple[torch.Tensor, ...], chunk: int, remat_policy: str = "full"):
     """``fn`` over the leading axis in chunks of ``chunk`` rows, each chunk
-    under ``torch.utils.checkpoint`` (its activations are recomputed in the
-    backward): bounds the peak memory of the N·D visibility queries.  Exact,
+    under ``torch.utils.checkpoint`` when autograd records (its activations
+    are recomputed in the backward): bounds the peak memory of the N·D
+    visibility queries.  Exact,
     since ``fn`` is row-wise and the chunks' results are concatenated.
     ``fn`` returns a dict of tensors."""
     if remat_policy != "full":
         raise NotImplementedError(f"visibility_remat_policy {remat_policy!r} is not ported yet")
     m = args[0].shape[0]
-    outs = [checkpoint(fn, *(a[s:s + chunk] for a in args), use_reentrant=False) for s in range(0, m, chunk)]
+    run = (lambda *a: checkpoint(fn, *a, use_reentrant=False)) if torch.is_grad_enabled() else fn
+    outs = [run(*(a[s:s + chunk] for a in args)) for s in range(0, m, chunk)]
     return {k: torch.cat([o[k] for o in outs], dim=0) for k in outs[0]}
 
 
@@ -295,6 +297,15 @@ class NeuSkyModel:
             for i, pf in enumerate(self.proposal_fields)
         ]
 
+    def _select_latents(self, params, train: bool, fitting_eval_latents: bool):
+        """(latents [I, L, 3], scales [I]): the train group while training,
+        the eval group in eval mode and while the eval latents are fitted."""
+        if train and not fitting_eval_latents:
+            g = params["illumination_field"]
+            return g["train_latents"], g["train_scale"]
+        g = params["eval_latents"]
+        return g["eval_latents"], g["eval_scale"]
+
     def sample_illumination(
         self,
         params,
@@ -304,9 +315,13 @@ class NeuSkyModel:
         train: bool,
         rotation_normals: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        fitting_eval_latents: bool = False,
+        rotation: Optional[torch.Tensor] = None,
     ):
         """→ (illum_dirs [D, 3], hdr_light_colours [N, D, 3],
-        hdr_background [N, 3]); the RENI decode is a static [U·D] batch."""
+        hdr_background [N, 3]); the RENI decode is a static [U·D] batch.
+        ``rotation`` ([3, 3], or [U, 3, 3] one per image) rotates the
+        decoded sky."""
         c = self.config
         apply_rot = False if (not train and c.fix_test_illumination_directions) else None
         dirs = self.illumination_sampler(
@@ -314,19 +329,22 @@ class NeuSkyModel:
         )
         d = dirs.shape[0]
         u = image_indices.shape[0]
-        g = params["illumination_field"]
-        z_img = g["train_latents"][image_indices]  # [U, L, 3]
-        s_img = g["train_scale"][image_indices]  # [U]
+        latents, scales = self._select_latents(params, train, fitting_eval_latents)
+        z_img = latents[image_indices]  # [U, L, 3]
+        s_img = scales[image_indices]  # [U]
+        per_image = rotation is not None and rotation.dim() == 3
         decoder = params["illumination_decoder"]
         if c.illumination.fixed_decoder:
             decoder = freeze_decoder_params(decoder)
         out = self.illumination.apply(
-            decoder, dirs.repeat(u, 1), z_img.repeat_interleave(d, 0), s_img.repeat_interleave(d, 0)
+            decoder, dirs.repeat(u, 1), z_img.repeat_interleave(d, 0), s_img.repeat_interleave(d, 0),
+            rotation.repeat_interleave(d, 0) if per_image else rotation,
         )
         hdr = self.illumination.unnormalise(out["rgb"]).reshape(u, d, 3)
         hdr_light = hdr[ray_image_idx]  # [N, D, 3]
         bg = self.illumination.apply(
-            decoder, ray_bundle.directions, z_img[ray_image_idx], s_img[ray_image_idx]
+            decoder, ray_bundle.directions, z_img[ray_image_idx], s_img[ray_image_idx],
+            rotation[ray_image_idx] if per_image else rotation,
         )
         return dirs, hdr_light, self.illumination.unnormalise(bg["rgb"])
 
@@ -470,8 +488,15 @@ class NeuSkyModel:
         train: bool = True,
         draws: Optional[dict] = None,
         generator: Optional[torch.Generator] = None,
+        fitting_eval_latents: bool = False,
+        rotation: Optional[torch.Tensor] = None,
     ) -> Dict[str, Any]:
-        """The per-ray forward graph (JAX ``forward`` + ``_compose_outputs``)."""
+        """The per-ray forward graph (JAX ``forward`` + ``_compose_outputs``).
+        The sky is decoded from the train latents while training and from
+        the eval latents in eval mode (``train=False``) or while they are
+        fitted (``fitting_eval_latents``); ``rotation`` rotates it (see
+        :meth:`sample_illumination`).  Eval mode draws nothing and skips the
+        level-set SDF query, which only a training loss reads."""
         c = self.config
         if train:
             draws = self.draw(draws, generator, ray_bundle.num_rays)
@@ -493,6 +518,7 @@ class NeuSkyModel:
         samples_list = samples_list + [rs]
         illum_dirs, hdr_light, hdr_background = self.sample_illumination(
             params, rb, image_indices, ray_image_idx, train, draws.get("light_rotation"), generator,
+            fitting_eval_latents=fitting_eval_latents, rotation=rotation,
         )
         p2p = render_depth(weights, rs)
         accumulation = render_accumulation(weights)
@@ -504,7 +530,7 @@ class NeuSkyModel:
             vis_dict = self.compute_visibility(
                 params, rs, p2p.detach() if stop_depth else p2p, illum_dirs, thr, sig_scale,
                 stop_sdf_gradients=stop_sdf,
-                compute_sdf_at_termination=c.losses.sdf_level_set_visibility,
+                compute_sdf_at_termination=train and c.losses.sdf_level_set_visibility,
                 stoch_salt=self._field_salt(draws.get("sdf_salt")),
             )
         rgb = lambertian_composite(
@@ -579,9 +605,11 @@ class NeuSkyModel:
 
     # ------------------------------------------------------------------
 
-    def loss_dict(self, params, outputs, batch, train: bool = True) -> Dict[str, torch.Tensor]:
+    def loss_dict(self, params, outputs, batch, train: bool = True,
+                  fitting_eval_latents: bool = False) -> Dict[str, torch.Tensor]:
         """``batch`` carries ``image`` [N, 3] and ``mask`` [N, 4] (static,
-        fg, ground, sky)."""
+        fg, ground, sky).  The scene-only terms count while training, not
+        while the eval latents are fitted."""
         c = self.config
         li = c.losses
         image = batch["image"]
@@ -598,7 +626,7 @@ class NeuSkyModel:
             ld["rgb_l2_loss"] = L.mse_loss(masked_img, masked_pred)
         if li.cosine_colour:
             ld["cosine_colour_loss"] = L.cosine_colour_loss(masked_img, masked_pred)
-        if train:
+        if train and not fitting_eval_latents:
             if li.eikonal:
                 ld["eikonal_loss"] = L.eikonal_loss(outputs["eik_grad"])
             if li.fg_mask:

@@ -10,8 +10,9 @@ Randomness: ``draws`` holds the scene forward's draws
 (:meth:`NeuSkyModel.draw`) and, under ``"ddf"``, the DDF half's
 (:func:`draw_ddf_fit`); whatever is missing comes from ``generator``.
 
-Not ported yet: ``fused_ddf_gt_pass`` (``forward_with_ddf_gt``) and
-``eval_latent_loss_fn``.
+``eval_latent_loss_fn`` is the loss of the test-time eval-latent fit.
+
+Not ported yet: ``fused_ddf_gt_pass`` (``forward_with_ddf_gt``).
 """
 
 from __future__ import annotations
@@ -170,3 +171,21 @@ def train_loss_fn(
             "metrics": {**aux["metrics"], **ddf_aux["metrics"]},
         }
     return total, aux
+
+
+def eval_latent_loss_fn(
+    model: NeuSkyModel,
+    params,
+    batch: Dict[str, Any],
+    step: float,
+    rotation: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Loss of test-time latent fitting: the eval-mode forward with the sky
+    decoded from the eval latents, then the RGB and sky-pixel terms only.
+    Only the leaves the caller lets require gradients receive them (the
+    eval group, :func:`~neusky_torch.engine.eval_loop.fit_eval_latents`)."""
+    outputs = model.forward(
+        params, batch_ray_bundle(batch), batch["image_indices"], batch["ray_image_idx"],
+        step=step, train=False, fitting_eval_latents=True, rotation=rotation,
+    )
+    return _sum(model.loss_dict(params, outputs, batch, train=False, fitting_eval_latents=True), model.device)

@@ -1,6 +1,6 @@
-"""Single-device train step (mirror of
-``neusky_tpu/parallel/mesh.py::make_train_step`` without a mesh): value
-and grad of ``train_loss_fn``, then the optimizer update."""
+"""Single-device steps (mirror of ``neusky_tpu/parallel/mesh.py``
+``make_train_step`` and ``make_eval_latent_step`` without a mesh): value
+and grad of the loss, then the optimizer update."""
 
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ import torch
 
 from neusky_torch.engine.optimizers import GroupedAdam
 from neusky_torch.models.neusky import NeuSkyModel
-from neusky_torch.models.pipeline import PipelineConfig, train_loss_fn
+from neusky_torch.models.pipeline import PipelineConfig, eval_latent_loss_fn, train_loss_fn
 
 
 def make_train_step(model: NeuSkyModel, pipeline_config: PipelineConfig, optimizer: GroupedAdam) -> Callable:
@@ -26,5 +26,20 @@ def make_train_step(model: NeuSkyModel, pipeline_config: PipelineConfig, optimiz
         aux["loss_dict"] = {k: v.detach() for k, v in aux["loss_dict"].items()}
         aux["total_loss"] = total.detach()
         return aux
+
+    return step_fn
+
+
+def make_eval_latent_step(model: NeuSkyModel, optimizer: GroupedAdam) -> Callable:
+    """One step of test-time latent fitting: ``step_fn(params, batch, step,
+    rotation=None) → total loss`` (detached), the eval group updated in
+    place by ``optimizer`` (:func:`build_eval_latent_optimizer`)."""
+
+    def step_fn(params, batch, step, rotation: Optional[torch.Tensor] = None):
+        optimizer.zero_grad()
+        total = eval_latent_loss_fn(model, params, batch, step, rotation)
+        total.backward()
+        optimizer.step()
+        return total.detach()
 
     return step_fn

@@ -1,9 +1,11 @@
-"""Icosphere light-direction sampler (mirror of
-``neusky_tpu/sampling/illumination.py::IcosahedronSampler``)."""
+"""Light-direction samplers (mirror of
+``neusky_tpu/sampling/illumination.py``): the icosphere set of the shading
+and the equirectangular grid of the envmap panels."""
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -57,3 +59,22 @@ class IcosahedronSampler:
         if rotation_normals is None:
             rotation_normals = draw_rotation_normals(generator, device)
         return dirs @ random_rotation_matrix(rotation_normals)
+
+
+@dataclasses.dataclass(frozen=True)
+class EquirectangularSampler:
+    """Equirectangular grid of directions, z up, [H·W, 3] row-major from
+    the zenith row; height = width // 2."""
+
+    width: int = 128
+
+    @property
+    def height(self) -> int:
+        return self.width // 2
+
+    def __call__(self, device) -> torch.Tensor:
+        phi = (torch.arange(self.height, device=device) + 0.5) / self.height * math.pi
+        theta = (torch.arange(self.width, device=device) + 0.5) / self.width * 2.0 * math.pi - math.pi
+        phi_g, theta_g = torch.meshgrid(phi, theta, indexing="ij")
+        return torch.stack([torch.sin(phi_g) * torch.cos(theta_g), torch.sin(phi_g) * torch.sin(theta_g),
+                            torch.cos(phi_g)], dim=-1).reshape(-1, 3)

@@ -35,5 +35,9 @@ def lambertian_composite(
     acc = torch.sum(weights, dim=-2)
     comp_rgb = linear_to_sRGB(comp_rgb + background_illumination * (1.0 - acc))
     if clip_output:
-        comp_rgb = torch.clamp(comp_rgb, 0.0, 1.0)
+        # JAX's clip, derivative included: half the gradient at a bound,
+        # where the straight-through sRGB clamp puts saturated pixels (min
+        # and max split ties; torch.clamp passes all of it).  The eval
+        # latent fit differentiates through here.
+        comp_rgb = torch.minimum(torch.maximum(comp_rgb, torch.zeros_like(comp_rgb)), torch.ones_like(comp_rgb))
     return comp_rgb

@@ -9,6 +9,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from neusky_torch.convert import convert_params
@@ -73,8 +74,14 @@ def jax_scene_draws(cfg_j, rng, n_rays: int) -> dict:
     train_loss_fn → split(2)[0] → forward split(4) → proposal split(3),
     density_fns split(2) of k_stoch, ``_field_salt(k_stoch)``, the light
     rotation normal(k_illum, 4) and ``_hashgrid_density_samples(k_grid)``."""
-    k_scene, _ = jax.random.split(rng)
-    k_prop, k_illum, k_grid, k_stoch = jax.random.split(k_scene, 4)
+    return jax_forward_draws(cfg_j, jax.random.split(rng)[0], n_rays)
+
+
+def jax_forward_draws(cfg_j, rng, n_rays: int) -> dict:
+    """The draws of ``neusky_tpu`` ``NeuSkyModel.forward(rng, train=True)``
+    over ``n_rays`` rays (its key tree: split(4) into the proposal,
+    illumination, density-grid and stochastic-gradient keys)."""
+    k_prop, k_illum, k_grid, k_stoch = jax.random.split(rng, 4)
     prop = cfg_j.proposal
     nit = len(prop.num_proposal_samples)
     pkeys = jax.random.split(k_prop, nit + 1)
@@ -157,3 +164,14 @@ def max_rel_err(a, b) -> float:
     a = np.asarray(a, np.float64)
     b = np.asarray(b, np.float64)
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """Run a module's torch CPU work on one thread: its tiny shapes gain
+    nothing from more, and the test workers share the machine's cores
+    (eight threads a worker spin against each other)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
