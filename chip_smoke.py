@@ -44,14 +44,27 @@ Phases (any failure exits non-zero; no phase's failure is passed over):
    and must be 7 a training step and 0 in the fit and the render; 10 fit
    steps and one render run under ``torch.profiler``; then a small fit and
    render on the card against the CPU;
-7. one JSON line listing every kernel (K1 per joint step, on the joint
+7. the command line, in process (``neusky_torch.cli.main``), on fixtures
+   written by the port's own writers into a temporary directory: ``train
+   neusky`` on a NeRF-OSR fixture (3 sessions; 3 train, 1 validation and 2
+   test views each; 64×48; 9 images × 113 rays and 256 sky rays a step) for
+   4 steps saving every 2, ``train neusky-synthetic`` on a Blender fixture
+   (4 train and 2 validation views, 64×48) for 2 steps, then ``eval
+   neusky`` (the 250-step latent fit cycling the 3 validation slots, the
+   renders and scores of the 3 validation views) and ``render neusky``
+   from the NeRF-OSR run's checkpoint; K1's count is zeroed before each
+   command and read after it (and at each logged step): 7 a training step,
+   0 in eval and render;
+8. one JSON line listing every kernel (K1 per joint step, on the joint
    path's own inputs), the card line, and the final
    ``{"ok": true, "device": ...}`` line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import subprocess
@@ -722,6 +735,119 @@ def check_eval_cuda_vs_cpu(card: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the command line
+
+
+CLI_NERFOSR = dict(num_sessions=3, train_per_session=3, test_per_session=2, width=64, height=48)
+CLI_BLENDER = dict(num_train=4, num_val=2, width=64, height=48)
+CLI_STEPS = 4
+
+
+def cli_train(argv, expected: int, steps: int, card: str):
+    """``cli.main(argv)`` (a ``train``, every step logged): K1's count
+    zeroed before and read at each logged step and after; → (host time
+    of each log line, the log records, peak device GiB)."""
+    from neusky_torch import cli
+
+    stamps, records = [], []
+    printer = cli.print_record
+
+    def keep(record):  # the log line reads the loss, which waits for the card
+        stamps.append((time.perf_counter(), k1_launches()))
+        records.append(record)
+        printer(record)
+
+    cli.print_record = keep
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k1.launches[k1.KERNEL_NAME] = 0
+        t0 = time.perf_counter()
+        cli.main(argv + ["--trainer.steps_per_log", "1"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        cli.print_record = printer
+    per_step = [n - (stamps[i - 1][1] if i else 0) for i, (_, n) in enumerate(stamps)]
+    check(per_step == [expected] * steps and k1_launches() == expected * steps,
+          f"cli {argv[1]}: K1 launches per step {per_step} ({k1_launches()} in all), expected {expected}")
+    bad = [(r["step"], k, v) for r in records for k, v in r.items() if isinstance(v, float) and not math.isfinite(v)]
+    check(len(records) == steps and not bad, f"cli {argv[1]}: {len(records)} log lines, non-finite {bad}")
+    log(f"cli train {argv[1]} ({card}): {steps} steps in {wall:.3f} s (model, data and prior set-up included); "
+        f"K1 launches per step {per_step}")
+    return [t for t, _ in stamps], records, torch.cuda.max_memory_allocated() / 2**30
+
+
+def run_cli_path(card: str):
+    """Phase 7: see the module docstring."""
+    from neusky_torch import cli
+    from neusky_torch.data.fixtures import make_blender_fixture, make_nerfosr_fixture
+
+    cfg, pcfg = neusky_model_config(9, 3), neusky_pipeline_config()
+    expected = expected_launches_per_step(cfg, pcfg)
+    n_train = CLI_NERFOSR["num_sessions"] * CLI_NERFOSR["train_per_session"]
+    u = min(16, n_train)
+    n_scene = u * (1024 // u)  # cli train's default --rays-per-batch
+    s = pcfg.visibility_train_sampler
+    n_counted = n_scene + s.num_samples_on_sphere * s.num_rays_per_sample + DataManagerConfig().num_sky_rays
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        osr = make_nerfosr_fixture(tmp / "nerfosr", **CLI_NERFOSR)
+        blender = make_blender_fixture(tmp / "blender", **CLI_BLENDER)
+        log(f"cli fixtures written in {time.perf_counter() - t0:.3f} s: NeRF-OSR {CLI_NERFOSR}, Blender {CLI_BLENDER}")
+        run = tmp / "run"
+        common = ["--data", str(osr), "--session-holdout-indices", "0,0,0"]
+
+        stamps, records, train_peak = cli_train(
+            ["train", "neusky", *common, "--max-iterations", str(CLI_STEPS), "--output-dir", str(run),
+             "--trainer.steps_per_save", "2", "--trainer.steps_per_eval_image", "1000000000"], expected, CLI_STEPS, card)
+        saved = sorted(p.name for p in (run / "checkpoints").iterdir())
+        check(saved == ["step-000000002", "step-000000004"], f"cli train checkpoints: {saved}")
+        gaps = np.diff(stamps)  # steps 2..4; a save at step 2 falls in step 3's gap
+        steady = float(np.mean([gaps[0], gaps[2]]))
+        log(f"cli train neusky ({card}): {n_scene} scene rays a step ({u} images x {1024 // u}), {n_counted} counted; "
+            f"log-to-log ms of steps 2, 3 (after the step-2 save), 4: {', '.join(f'{g * 1e3:.1f}' for g in gaps)}; "
+            f"steady step (steps 2 and 4) {steady * 1e3:.1f} ms, {n_scene / steady:.1f} scene rays/s, "
+            f"{n_counted / steady:.1f} counted rays/s; peak device memory {train_peak:.3f} GiB; losses at step 4: "
+            + json.dumps({k: v for k, v in records[-1].items() if k.endswith("_loss")}))
+
+        _, syn_records, syn_peak = cli_train(
+            ["train", "neusky-synthetic", "--data", str(blender), "--max-iterations", "2",
+             "--output-dir", str(tmp / "run_synthetic")], expected, 2, card)
+        check((tmp / "run_synthetic" / "latest.json").exists(), "cli train neusky-synthetic wrote no checkpoint")
+        log(f"cli train neusky-synthetic ({card}): total loss {syn_records[0]['total_loss']} -> "
+            f"{syn_records[-1]['total_loss']}; peak device memory {syn_peak:.3f} GiB")
+
+        out = io.StringIO()
+        k1.launches[k1.KERNEL_NAME] = 0
+        with contextlib.redirect_stdout(out):
+            _, eval_s, eval_peak = measured(lambda: cli.main(["eval", "neusky", *common, "--load-dir", str(run)]))
+        eval_launches = k1_launches()
+        metrics_line = out.getvalue().strip().splitlines()[-1]
+        m = json.loads(metrics_line)
+        check(eval_launches == 0, f"K1 launched {eval_launches} times in cli eval")
+        check(sorted(m) == ["fps", "lpips", "mse", "num_rays_per_sec", "psnr", "ssim"]
+              and all(math.isfinite(v) for v in m.values()), f"cli eval printed {metrics_line}")
+        log(f"cli eval neusky ({card}): {eval_s:.3f} s wall (set-up, the {EVAL_FIT_STEPS}-step fit of 3 slots at "
+            f"{n_scene} region rays, 3 renders of {CLI_NERFOSR['width']}x{CLI_NERFOSR['height']}); peak device memory "
+            f"{eval_peak:.3f} GiB; K1 launches {eval_launches}; printed: {metrics_line}")
+
+        image = tmp / "render.npy"
+        k1.launches[k1.KERNEL_NAME] = 0
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, render_s, render_peak = measured(lambda: cli.main(
+                ["render", "neusky", *common, "--load-dir", str(run), "--image-idx", "0", "--output", str(image)]))
+        render_launches = k1_launches()
+        img = np.load(image)
+        check(render_launches == 0, f"K1 launched {render_launches} times in cli render")
+        check(img.shape == (CLI_NERFOSR["height"], CLI_NERFOSR["width"], 3) and np.isfinite(img).all(),
+              f"cli render wrote {img.shape}, finite {np.isfinite(img).all()}")
+        log(f"cli render neusky ({card}): {img.shape} in {render_s:.3f} s wall (set-up included), rgb in "
+            f"[{img.min():.4f}, {img.max():.4f}]; peak device memory {render_peak:.3f} GiB; K1 launches {render_launches}")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -747,6 +873,7 @@ def main() -> int:
     del captured
     run_eval_path(card)
     check_eval_cuda_vs_cpu(card)
+    run_cli_path(card)
     per_step = lambda key: sum(r[key] * r["launches_per_step"] for r in sites)
     kernels = [{
         "name": k1.KERNEL_NAME,

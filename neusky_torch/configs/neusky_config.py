@@ -2,10 +2,13 @@
 ``neusky_tpu/configs/neusky_config.py``): ``neusky_model_config`` (the
 joint model, with the FiLM-SIREN DDF on NeRF encodings) and
 ``neusky_pipeline_config`` (vMF DDF rays, 8 sphere points × 128 rays at
-κ = 20, 256 sky rays)."""
+κ = 20, 256 sky rays), registered as the CLI method ``neusky``."""
 
 from __future__ import annotations
 
+from neusky_torch.configs.registry import MethodSpec, register_method
+from neusky_torch.engine.optimizers import default_neusky_optimizer_groups
+from neusky_torch.engine.trainer import TrainerConfig
 from neusky_torch.fields.ddf import DDFFieldConfig
 from neusky_torch.fields.density_field import DensityFieldConfig
 from neusky_torch.fields.reni import RENIFieldConfig
@@ -121,3 +124,21 @@ def neusky_pipeline_config(**overrides) -> PipelineConfig:
     )
     base.update(overrides)
     return PipelineConfig(**base)
+
+
+def _build(num_train_data: int = 8, num_eval_data: int = 2, **_):
+    return {
+        "model_config": neusky_model_config(num_train_data, num_eval_data),
+        "pipeline_config": neusky_pipeline_config(),
+        "trainer_config": TrainerConfig(max_num_iterations=100001, steps_per_save=5000, steps_per_eval_image=5000),
+        "optimizer_groups": default_neusky_optimizer_groups(100001),
+    }
+
+
+neusky_method = register_method(
+    MethodSpec(
+        name="neusky",
+        description="Canonical NeuSky on NeRF-OSR (``configs/neusky_config.py``).",
+        build=_build,
+    )
+)

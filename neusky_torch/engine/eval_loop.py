@@ -9,15 +9,19 @@ functions take no generator.  The fit updates only the eval group
 detached, so autograd records just the RENI decode → Lambertian branch and
 no hash-table gradient (K1) runs.
 
-Not ported yet: ``fit_eval_rotation``, the NeRF-OSR protocol
-(``run_nerfosr_protocol``, ``run_nerfosr_eval``, ``_load_session_envmaps``)
-and the CLI glue (``_load_run``, ``run_eval``, ``run_render``).
+``run_eval`` and ``run_render`` are ``cli eval`` and ``cli render``.
+
+Not ported yet: ``fit_eval_rotation`` and the NeRF-OSR protocol
+(``run_nerfosr_protocol``, ``run_nerfosr_eval``, ``_load_session_envmaps``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
+import json
 import time
+from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -212,3 +216,54 @@ def average_eval_metrics(
         for k in ("num_rays_per_sec", "fps"):
             out[k] = float(np.mean([m[k] for m in per_image[1:]]))
     return out
+
+
+# ---------------------------------------------------------------------------
+# CLI glue
+
+
+def _load_run(args, overrides):
+    """(model, params, datamanager) of a ``cli eval`` / ``cli render`` run on
+    ``args.device``: the method's configs with the overrides, latent counts
+    from the data, params from ``model.init`` restored from the newest
+    checkpoint under ``--load-dir`` (the optimizer's state is the template
+    and is dropped).  Without ``--load-dir`` the params stay as initialised,
+    with no prior loaded, as in JAX."""
+    from neusky_torch.cli import _apply_overrides, _build_datamanager
+    from neusky_torch.configs import METHOD_REGISTRY
+    from neusky_torch.device import resolve_device
+    from neusky_torch.engine.checkpoint import load_checkpoint
+    from neusky_torch.engine.optimizers import GroupedAdam, default_neusky_optimizer_groups
+
+    bundle = _apply_overrides(METHOD_REGISTRY[args.method].build(), overrides)
+    model_config = bundle["model_config"]
+    dm = _build_datamanager(args, model_config, bundle.get("dataparser", "nerfosr"))
+    model_config = dataclasses.replace(model_config, num_train_data=dm.num_train, num_eval_data=max(dm.num_eval, 1))
+    model = NeuSkyModel(model_config, device=args.device)
+    params = model.init(torch.Generator(device=resolve_device(args.device)).manual_seed(0))
+    if args.load_dir:
+        optimizer = GroupedAdam(params, bundle.get("optimizer_groups") or default_neusky_optimizer_groups(10))
+        params, _, _ = load_checkpoint(Path(args.load_dir), None, params, optimizer.state_dict())
+    return model, params, dm
+
+
+def run_eval(args, overrides):
+    """``cli eval``: fit the eval latents (when there is an eval split),
+    render and score every eval image, print the mean metrics as JSON."""
+    model, params, dm = _load_run(args, overrides)
+    metrics = average_eval_metrics(model, params, dm, fit_latents_first=dm.num_eval > 0)
+    print(json.dumps(metrics), flush=True)
+    return metrics
+
+
+def run_render(args, overrides):
+    """``cli render``: render eval image ``--image-idx`` with its eval
+    slot's sky and save its ``rgb`` [H, W, 3] to ``--output`` (``.npy``)."""
+    model, params, dm = _load_run(args, overrides)
+    rb, _ = dm.eval_image_bundle(args.image_idx)
+    out = render_camera(model, params, rb, args.image_idx)
+    cams = dm.eval_cameras if dm.eval_cameras is not None else dm.train_cameras
+    img = out["rgb"].reshape(cams.height, cams.width, 3)
+    np.save(args.output, img)
+    print(f"saved render to {args.output} ({img.shape})")
+    return img

@@ -1,4 +1,5 @@
-"""Guards of the PyTorch port: it imports nothing of the JAX side, its
+"""Guards of the PyTorch port: it imports nothing of the JAX side (and
+neither Pillow nor plyfile when a module is imported), its
 entry points refuse to silently run on the CPU, its config dataclasses
 mirror the JAX ones field for field, and its converted RENI++ prior equals
 the orbax checkpoint the JAX package restores."""
@@ -44,6 +45,7 @@ def test_port_imports_nothing_of_jax(path):
 
 
 def _entry_points():
+    from neusky_torch import cli
     from neusky_torch.configs.neusky_config import neusky_model_config
     from neusky_torch.data.datamanager import DataManager, DataManagerConfig
     from neusky_torch.data.synthetic import SyntheticSceneConfig, generate_synthetic_scene
@@ -63,18 +65,51 @@ def _entry_points():
             DataManager(DataManagerConfig(), scene["cameras"], scene["images"],
                         scene["masks"], device="cpu"),
         ),
+        "cli": lambda: cli.main(["train", "neusky-tiny", "--synthetic-demo"]),
     }
 
 
-@pytest.mark.parametrize("name", ["model", "datamanager", "trainer"])
+@pytest.mark.parametrize("name", ["model", "datamanager", "trainer", "cli"])
 def test_entry_point_without_cpu_raises_when_cuda_absent(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         _entry_points()[name]()
 
 
+def _module_level_imports(tree):
+    """Names imported when the module is imported: its top-level
+    statements and class bodies, not function bodies."""
+    names, todo = [], list(tree.body)
+    while todo:
+        node = todo.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            continue
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+        todo.extend(ast.iter_child_nodes(node))
+    return names
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_no_optional_package_at_module_level(path):
+    """The card's machine has neither Pillow nor plyfile: the port imports
+    them only inside the functions that fall back to them."""
+    names = _module_level_imports(ast.parse(path.read_text(), filename=str(path)))
+    assert not [n for n in names if n.split(".")[0] in ("PIL", "plyfile")], path
+
+
+def test_module_level_import_scan_sees_top_level_and_skips_functions():
+    src = "import PIL\nclass A:\n    from plyfile import PlyData\ndef f():\n    import torch\n"
+    assert sorted(_module_level_imports(ast.parse(src))) == ["PIL", "plyfile"]
+
+
 def _jax_config_classes():
+    from neusky_tpu.data.dataparsers.custom_synthetic import CustomSyntheticDataparserConfig
+    from neusky_tpu.data.dataparsers.nerfosr import NeRFOSRDataparserConfig
     from neusky_tpu.engine.optimizers import OptimizerGroupConfig
+    from neusky_tpu.engine.trainer import TrainerConfig
     from neusky_tpu.fields.ddf import DDFFieldConfig
     from neusky_tpu.fields.density_field import DensityFieldConfig
     from neusky_tpu.fields.reni import RENIFieldConfig
@@ -90,6 +125,7 @@ def _jax_config_classes():
         HashGridConfig, DensityFieldConfig, SDFAlbedoFieldConfig, RENIFieldConfig,
         ProposalSamplerConfig, LossInclusions, NeuSkyModelConfig, PipelineConfig,
         OptimizerGroupConfig, DDFFieldConfig, DDFLossConfig, DDFModelConfig, DDFSamplerConfig,
+        TrainerConfig, NeRFOSRDataparserConfig, CustomSyntheticDataparserConfig,
     )}
 
 
@@ -99,11 +135,11 @@ _PLACEHOLDERS = set()
 
 @pytest.mark.parametrize("name", sorted(TORCH_CONFIGS))
 def test_config_fields_mirror_jax(name):
-    from torch_parity import to_torch_config
+    from torch_parity import LEFT_OUT_FIELDS, to_torch_config
 
     jcls = _jax_config_classes()[name]
     tcls = TORCH_CONFIGS[name]
-    jf = [f.name for f in dataclasses.fields(jcls)]
+    jf = [f.name for f in dataclasses.fields(jcls) if (name, f.name) not in LEFT_OUT_FIELDS]
     assert jf == [f.name for f in dataclasses.fields(tcls)]
     jdef, tdef = jcls(), tcls()
     for f in jf:

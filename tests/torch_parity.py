@@ -13,7 +13,10 @@ import pytest
 import torch
 
 from neusky_torch.convert import convert_params
+from neusky_torch.data.dataparsers import custom_synthetic as t_cs
+from neusky_torch.data.dataparsers import nerfosr as t_osr
 from neusky_torch.engine import optimizers as t_opt
+from neusky_torch.engine import trainer as t_trainer
 from neusky_torch.fields import ddf as t_ddf
 from neusky_torch.fields import density_field as t_df
 from neusky_torch.fields import reni as t_reni
@@ -32,19 +35,32 @@ TORCH_CONFIGS = {
         t_reni.RENIFieldConfig, t_prop.ProposalSamplerConfig, t_neusky.LossInclusions,
         t_neusky.NeuSkyModelConfig, t_pipe.PipelineConfig, t_opt.OptimizerGroupConfig,
         t_ddf.DDFFieldConfig, t_ddf_model.DDFLossConfig, t_ddf_model.DDFModelConfig,
-        t_ddf_sampler.DDFSamplerConfig,
+        t_ddf_sampler.DDFSamplerConfig, t_trainer.TrainerConfig,
+        t_osr.NeRFOSRDataparserConfig, t_cs.CustomSyntheticDataparserConfig,
     )
 }
+
+# JAX config fields the port leaves out, as nothing reads them:
+# ``TrainerConfig.mixed_precision`` is read by neither trainer
+LEFT_OUT_FIELDS = {("TrainerConfig", "mixed_precision")}
 
 
 def to_torch_config(obj):
     """A JAX config dataclass (recursively) → the port's class of the same
-    name, field for field."""
+    name, field for field (a left-out field must hold its default)."""
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        cls = TORCH_CONFIGS[type(obj).__name__]
-        return cls(**{f.name: to_torch_config(getattr(obj, f.name)) for f in dataclasses.fields(obj)})
+        name = type(obj).__name__
+        kept = {}
+        for f in dataclasses.fields(obj):
+            if (name, f.name) in LEFT_OUT_FIELDS:
+                assert getattr(obj, f.name) == f.default, (name, f.name)
+                continue
+            kept[f.name] = to_torch_config(getattr(obj, f.name))
+        return TORCH_CONFIGS[name](**kept)
     if isinstance(obj, tuple):
         return tuple(to_torch_config(x) for x in obj)
+    if isinstance(obj, dict):
+        return {k: to_torch_config(v) for k, v in obj.items()}
     return obj
 
 
