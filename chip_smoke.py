@@ -55,7 +55,24 @@ Phases (any failure exits non-zero; no phase's failure is passed over):
    from the NeRF-OSR run's checkpoint; K1's count is zeroed before each
    command and read after it (and at each logged step): 7 a training step,
    0 in eval and render;
-8. one JSON line listing every kernel (K1 per joint step, on the joint
+8. in phase 7's directory, from its ``train neusky`` run: ``train ddf``
+   (the DDF alone against the frozen scene: 5×256 FiLM-SIREN, 8 × 128 vMF
+   rays at κ = 20 and 256 sky rays a step, 20 steps; every non-DDF leaf of
+   the checkpoint it writes bit-equal to the run's, the DDF moved, the
+   depth PSNR finite), then ``eval neusky --protocol nerfosr`` per image and
+   with ``nerf_osr_envmap`` (the fits cut from 250 to 60 steps; JAX's
+   keys in the JSON, finite metrics, rotations in [0, 2π)); K1's count is
+   zeroed before each command and must read 0 after it; one more DDF
+   step runs under ``torch.profiler``;
+9. the RENI++ prior at the canonical decoder (latent 100, 6 attention
+   layers of 8 heads) through ``neusky_torch/tools/train_reni_prior.py``:
+   64 skies at 128 px, 2,048 pixels a step for 200 steps, the gates
+   (4 held-out skies fitted for 250 steps), the prior file written and
+   read back through ``illumination_prior_dir``, K1 0, one more trainer
+   step timed and profiled; then a 5-step
+   trainer chunk and a 5-step envmap fit on the card against the CPU on
+   the same draws;
+10. one JSON line listing every kernel (K1 per joint step, on the joint
    path's own inputs), the card line, and the final
    ``{"ok": true, "device": ...}`` line.
 """
@@ -845,12 +862,246 @@ def run_cli_path(card: str):
               f"cli render wrote {img.shape}, finite {np.isfinite(img).all()}")
         log(f"cli render neusky ({card}): {img.shape} in {render_s:.3f} s wall (set-up included), rgb in "
             f"[{img.min():.4f}, {img.max():.4f}]; peak device memory {render_peak:.3f} GiB; K1 launches {render_launches}")
+        run_ddf_and_protocol(card, tmp, common, run)
+
+
+# ---------------------------------------------------------------------------
+# phase 8: cli train ddf and cli eval --protocol nerfosr
+
+
+DDF_STEPS = 20
+PROTOCOL_FIT_STEPS = 60  # the CLI's fits take 250; depth cut, not width
+PROTOCOL_KEYS = {"per_image", "mean", "fit_loss_first", "fit_loss_last", "num_sessions", "lpips_flavour"}
+
+
+def _checkpoint_leaves(base: Path):
+    from neusky_torch.engine.checkpoint import STATE_FILE, latest_step
+
+    step = latest_step(base)
+    state = torch.load(base / "checkpoints" / f"step-{step:09d}" / STATE_FILE, weights_only=True, map_location="cpu")
+    return dict(tree_items(state["params"]))
+
+
+def run_cli_ddf(card: str, tmp: Path, common, run: Path):
+    """``train ddf`` from ``run``: K1 zeroed before and read after; each
+    step synchronised and stamped (the loss call) for its time."""
+    from neusky_torch import cli
+    from neusky_torch.engine import ddf_trainer
+
+    stamps, records, trainers = [], [], []
+    loss, printer = ddf_trainer.DDFTrainer.loss, cli.print_record
+
+    def stamped_loss(self, *a, **kw):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        trainers[:] = [self]
+        return loss(self, *a, **kw)
+
+    ddf_trainer.DDFTrainer.loss = stamped_loss
+    cli.print_record = lambda record: records.append(record) or printer(record)
+    out = tmp / "ddf"
+    try:
+        k1.launches[k1.KERNEL_NAME] = 0
+        _, wall, peak = measured(lambda: cli.main(["train", "ddf", *common, "--load-dir", str(run), "--output-dir",
+                                                   str(out), "--max-iterations", str(DDF_STEPS)]))
+    finally:
+        ddf_trainer.DDFTrainer.loss, cli.print_record = loss, printer
+    launches = k1_launches()
+    check(launches == 0, f"K1 launched {launches} times in cli train ddf")
+    check(len(records) == 1 and records[0]["step"] == DDF_STEPS and all(math.isfinite(v) for v in records[0].values()),
+          f"cli train ddf records {records}")
+    before, after = _checkpoint_leaves(run), _checkpoint_leaves(out)
+    check(sorted(before) == sorted(after), "the DDF checkpoint's leaves differ from the run's")
+    moved = sorted({k.split("/")[0] for k in after if not torch.equal(after[k], before[k])})
+    check(moved == ["ddf_field"], f"cli train ddf moved {moved}")
+    gaps = np.diff(stamps)
+    steady = float(np.mean(gaps[2:]))
+    log(f"cli train ddf ({card}): {DDF_STEPS} steps of 8 x 128 vMF + 256 sky rays in {wall:.3f} s wall (set-up and "
+        f"the save included); steady {steady * 1e3:.3f} ms a step (steps 3..{DDF_STEPS - 1}, each synchronised); peak "
+        f"device memory {peak:.3f} GiB; K1 launches {launches}; only ddf_field moved; step {DDF_STEPS}: "
+        + json.dumps(records[0]))
+    log("cli train ddf ms of steps 1.." + str(DDF_STEPS - 1) + ": " + ", ".join(f"{g * 1e3:.1f}" for g in gaps))
+    trainer = trainers[0]
+    lone = [measured(lambda: trainer.run(1))[1] for _ in range(3)]
+    log(f"ddf steps after the command ({card}): " + ", ".join(f"{t * 1e3:.3f}" for t in lone) + " ms, each alone")
+    profile_call(lambda: trainer.run(1), lone[-1], card, "ddf step", top=8)
+
+
+def run_cli_protocol(card: str, tmp: Path, common, run: Path, method: str):
+    """``eval neusky --protocol nerfosr`` with ``method`` (fits cut to
+    PROTOCOL_FIT_STEPS): K1 zeroed before and read after."""
+    from neusky_torch import cli
+    from neusky_torch.engine import eval_loop
+
+    protocol = eval_loop.run_nerfosr_protocol
+    eval_loop.run_nerfosr_protocol = lambda *a, **kw: protocol(*a, fit_steps=PROTOCOL_FIT_STEPS, **kw)
+    path = tmp / f"nerfosr_{method}.json"
+    try:
+        k1.launches[k1.KERNEL_NAME] = 0
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, wall, peak = measured(lambda: cli.main(["eval", "neusky", *common, "--load-dir", str(run), "--protocol",
+                                                       "nerfosr", "--output", str(path),
+                                                       "--model.eval_latent_optimise_method", method]))
+    finally:
+        eval_loop.run_nerfosr_protocol = protocol
+    launches = k1_launches()
+    check(launches == 0, f"K1 launched {launches} times in cli eval --protocol nerfosr ({method})")
+    result = json.loads(path.read_text())
+    keys = PROTOCOL_KEYS | ({"envmap_fit_psnr", "session_rotation_rad"} if method == "nerf_osr_envmap" else set())
+    check(set(result) == keys, f"protocol JSON keys {sorted(result)}, expected {sorted(keys)}")
+    finite = list(result["mean"].values()) + [result["fit_loss_first"], result["fit_loss_last"]]
+    finite += [v for p in result["per_image"] for k, v in p.items() if k not in ("image_idx", "session")]
+    finite += result.get("envmap_fit_psnr", [])
+    check(all(math.isfinite(v) for v in finite), f"protocol ({method}) metrics not finite: {result}")
+    check(all(0.0 <= g < 2.0 * math.pi for g in result.get("session_rotation_rad", [])),
+          f"session rotations {result.get('session_rotation_rad')}")
+    extra = "" if method == "per_image" else (
+        f"; envmap fit PSNR {result['envmap_fit_psnr']}, session rotations {result['session_rotation_rad']} rad")
+    log(f"cli eval neusky --protocol nerfosr ({method}, {card}): {wall:.3f} s wall ({PROTOCOL_FIT_STEPS}-step fits of "
+        f"{result['num_sessions']} sessions, {len(result['per_image'])} building-masked compare renders); peak device "
+        f"memory {peak:.3f} GiB; K1 launches {launches}; fit loss {result['fit_loss_first']:.6f} -> "
+        f"{result['fit_loss_last']:.6f}; mean " + json.dumps(result["mean"]) + extra)
+
+
+def run_ddf_and_protocol(card: str, tmp: Path, common, run: Path):
+    """Phase 8: see the module docstring."""
+    t0 = time.perf_counter()
+    run_cli_ddf(card, tmp, common, run)
+    for method in ("per_image", "nerf_osr_envmap"):
+        run_cli_protocol(card, tmp, common, run, method)
+    log(f"phase 8 took {time.perf_counter() - t0:.3f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the RENI++ prior
+
+
+PRIOR_ARGS = ["--num-skies", "64", "--holdout", "4", "--width", "128", "--steps", "200"]
+
+
+def run_reni_prior(card: str):
+    """Phase 9 (first half): the prior script at the canonical decoder into
+    a temporary directory, then the prior read back from it."""
+    from types import SimpleNamespace
+
+    from neusky_torch.engine.checkpoint import PRIOR_FILE
+    from neusky_torch.fields.reni import RENIField
+    from neusky_torch.tools import train_reni_prior
+
+    from neusky_torch.engine.reni_trainer import RENITrainer
+
+    cfg = neusky_model_config(1, 1)
+    trainers = []
+    init = RENITrainer.__init__
+
+    def keep(self, *a, **kw):
+        init(self, *a, **kw)
+        trainers.append(self)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "prior"
+        k1.launches[k1.KERNEL_NAME] = 0
+        RENITrainer.__init__ = keep
+        try:
+            with contextlib.redirect_stdout(io.StringIO()) as text:
+                rc, wall, peak = measured(lambda: train_reni_prior.main(PRIOR_ARGS + ["--output", str(out)]))
+        finally:
+            RENITrainer.__init__ = init
+        launches = k1_launches()
+        check(rc in (0, 1), f"train_reni_prior exited {rc}: {text.getvalue()[-2000:]}")
+        check(launches == 0, f"K1 launched {launches} times in the RENI trainer")
+        q = json.loads((out / "quality.json").read_text())
+        check(all(math.isfinite(q[k]) for k in ("train_recon_psnr", "heldout_fit_psnr", "equivariance_max_err",
+                                                "clip_fit_loss_first", "clip_fit_loss_last"))
+              and q["equivariance_gate"], f"prior gates {q}")
+        prior_cfg = SimpleNamespace(illumination_prior_dir=str(out))
+        check(prior_asset_path(prior_cfg) == out / PRIOR_FILE, f"the prior resolves to {prior_asset_path(prior_cfg)}")
+        field = RENIField(dataclasses.replace(cfg.illumination, fixed_decoder=False))
+        loaded = load_illumination_prior({"illumination_decoder": field.init(torch.Generator(device="cuda"), "cuda")},
+                                         prior_cfg)
+        with np.load(out / PRIOR_FILE) as z:
+            same = all(np.array_equal(v.cpu().numpy(), z[k]) for k, v in tree_items(loaded))
+        check(same, "the prior read back differs from the file written")
+    log(f"RENI++ prior ({card}): {q['num_skies']} skies at {q['width']} px, {q['steps']} steps of 2048 pixels in "
+        f"{q['train_seconds']:.3f} s ({q['train_seconds'] / q['steps'] * 1e3:.3f} ms a step, the first chunk's set-up "
+        f"included); script {wall:.3f} s wall with the corpus and the gates; peak device memory {peak:.3f} GiB; K1 "
+        f"launches {launches}; train recon PSNR {q['train_recon_psnr']:.4f}, held-out fit PSNR "
+        f"{q['heldout_fit_psnr']:.4f} (4 skies, 250 steps), equivariance err {q['equivariance_max_err']:.3g}, z=0 "
+        f"saturated {q['z0_srgb_saturated_frac']:.4f}, clip fit {q['clip_fit_loss_first']:.4f} -> "
+        f"{q['clip_fit_loss_last']:.4f}, all gates {q['all_pass']} (exit {rc}); read back through "
+        "illumination_prior_dir")
+    trainer = trainers[0]
+    step = lambda: trainer._train_step(trainer.draw())
+    _, one_s, _ = measured(step)
+    log(f"RENI++ trainer step ({card}): {one_s * 1e3:.3f} ms (one more step, synchronised)")
+    profile_call(step, one_s, card, "RENI++ trainer step", top=8)
+
+
+def check_reni_cuda_vs_cpu(card: str):
+    """Phase 9 (second half): a 5-step chunk of the RENI trainer (4 skies
+    at 16 px, 256 pixels a step, the canonical decoder) and a 5-step fit of
+    3 skies at 32 px in chunks of 2 (the last padded) with the converted
+    prior, on the card and on the CPU from the same params and draws.
+    Tolerances (a float32 against float64 rehearsal on the CPU gave 3.3e-3,
+    3.0e-4 and 1.1e-4 for the three trainer groups, 1.1e-7 for the fit):
+    the losses and PSNRs to 1e-4 relative; the decoder to 1e-3 of each
+    leaf's largest entry, the latents and log-variances to 1e-2, the fitted
+    latents to 1e-4; the attention key biases, which take no gradient
+    (softmax is shift invariant) and move by Adam-normalised rounding noise,
+    by at most lr a step."""
+    from neusky_torch.data.sky_generator import generate_sky_corpus
+    from neusky_torch.engine.reni_trainer import RENITrainer, RENITrainerConfig, fit_latents_to_envmaps
+    from neusky_torch.fields.reni import RENIField
+
+    cfg = neusky_model_config(1, 1)
+    tcfg = RENITrainerConfig(field=dataclasses.replace(cfg.illumination, fixed_decoder=False), pixels_per_step=256,
+                             steps_per_call=5)
+    corpus = generate_sky_corpus(4, width=16, seed=2)
+    trainers = {dev: RENITrainer(tcfg, corpus, device=dev) for dev in ("cpu", "cuda")}
+    draws = [trainers["cpu"].draw() for _ in range(5)]
+    start = {k: v.detach().clone() for k, v in tree_items(trainers["cpu"].params)}
+    with torch.no_grad():
+        for k, v in tree_items(trainers["cuda"].params):
+            v.copy_(start[k])
+    hist = {dev: t.run(5, draws=[{k: v.to(dev) for k, v in d.items()} for d in draws])[-1]
+            for dev, t in trainers.items()}
+    got, want = dict(tree_items(trainers["cuda"].params)), dict(tree_items(trainers["cpu"].params))
+    worst, bad = {}, []
+    for k, w in want.items():
+        g = got[k].detach().cpu()
+        if k.endswith("/key/bias"):
+            if not float((g - start[k]).abs().max()) <= 5 * tcfg.lr * 1.001:
+                bad.append(k)
+            continue
+        group = "decoder" if k.startswith("decoder/") else k
+        rel = float((g - w.detach()).abs().max() / w.detach().abs().max())
+        worst[group] = max(worst.get(group, 0.0), rel)
+        if rel > (1e-3 if group == "decoder" else 1e-2):
+            bad.append((k, rel))
+    loss_err = max(abs(hist["cuda"][k] - hist["cpu"][k]) / abs(hist["cpu"][k]) for k in ("recon", "kl", "total"))
+
+    field = RENIField(cfg.illumination)
+    decoder = load_illumination_prior({"illumination_decoder": field.init(torch.Generator(), "cpu")}, cfg,
+                                      init_latent=False)["illumination_decoder"]
+    skies = generate_sky_corpus(3, width=32, seed=5)
+    pix = [np.random.default_rng(i).integers(0, 512, (5, 256)) for i in range(2)]
+    fits = {dev: fit_latents_to_envmaps(field, tree_map(lambda t: t.to(dev), decoder), skies, steps=5,
+                                        pixels_per_step=256, sky_chunk=2, pixel_draws=pix) for dev in ("cpu", "cuda")}
+    (z_c, p_c), (z_g, p_g) = fits["cpu"], fits["cuda"]
+    z_err = float(np.abs(z_g - z_c).max() / np.abs(z_c).max())
+    p_err = float(np.abs(p_g - p_c).max() / np.abs(p_c).max())
+    log(f"small RENI trainer chunk and envmap fit on the card vs the CPU ({card}): losses {loss_err:.3g} relative, "
+        f"params by group " + json.dumps({k: float(f"{v:.3g}") for k, v in worst.items()})
+        + f"; fitted latents {z_err:.3g} of scale, PSNRs {p_err:.3g} relative")
+    check(not bad and loss_err <= 1e-4 and z_err <= 1e-4 and p_err <= 1e-4,
+          f"the RENI trainer or the envmap fit on the card differs from the CPU: {bad}")
 
 
 # ---------------------------------------------------------------------------
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -874,6 +1125,10 @@ def main() -> int:
     run_eval_path(card)
     check_eval_cuda_vs_cpu(card)
     run_cli_path(card)
+    t9 = time.perf_counter()
+    run_reni_prior(card)
+    check_reni_cuda_vs_cpu(card)
+    log(f"phase 9 took {time.perf_counter() - t9:.3f} s; the script so far {time.perf_counter() - t_start:.3f} s")
     per_step = lambda key: sum(r[key] * r["launches_per_step"] for r in sites)
     kernels = [{
         "name": k1.KERNEL_NAME,

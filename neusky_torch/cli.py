@@ -11,10 +11,8 @@ Usage:
     python -m neusky_torch.cli train neusky-tiny --synthetic-demo --device cpu
     python -m neusky_torch.cli eval  neusky --data ... --load-dir outputs/run
     python -m neusky_torch.cli render neusky --data ... --load-dir outputs/run --output out.npy
-
-Not ported yet: ``train ddf`` (the DDF trainer, ``ROADMAP.md`` §1 item 11)
-and ``eval --protocol nerfosr`` (the NeRF-OSR relighting protocol, item
-10); both raise ``NotImplementedError``.
+    python -m neusky_torch.cli train ddf --data ... --load-dir outputs/run --output-dir outputs/ddf
+    python -m neusky_torch.cli eval  neusky --data ... --load-dir outputs/run --protocol nerfosr --output m.json
 """
 
 from __future__ import annotations
@@ -129,8 +127,7 @@ def cmd_train(args, overrides):
     from neusky_torch.models.neusky import NeuSkyModel
 
     if args.method == "ddf":
-        raise NotImplementedError(
-            "cli train ddf needs the DDF trainer, which is not ported yet (ROADMAP.md §1 item 11)")
+        return _cmd_train_ddf(args, overrides)
     bundle = _apply_overrides(METHOD_REGISTRY[args.method].build(), overrides)
     model_config = bundle["model_config"]
     dm = _build_datamanager(args, model_config, bundle.get("dataparser", "nerfosr"))
@@ -150,10 +147,49 @@ def cmd_train(args, overrides):
     print(f"done — checkpoints in {trainer_config.output_dir}")
 
 
+def _cmd_train_ddf(args, overrides):
+    """``train ddf``: the DDF fitted alone against the frozen NeuSky
+    checkpoint under ``--load-dir`` (scene method ``neusky-tiny`` with
+    ``--synthetic-demo``, else ``neusky``; the ``ddf`` recipe's sampler and
+    iteration count); the merged params with the trained DDF are saved under
+    ``--output-dir``."""
+    from pathlib import Path
+
+    import torch
+
+    from neusky_torch.configs import METHOD_REGISTRY
+    from neusky_torch.device import resolve_device
+    from neusky_torch.engine.checkpoint import load_param_subtrees, save_checkpoint
+    from neusky_torch.engine.ddf_trainer import DDFTrainer, DDFTrainerConfig
+    from neusky_torch.models.neusky import NeuSkyModel
+
+    if not args.load_dir:
+        raise SystemExit("ddf training requires --load-dir (frozen NeuSky ckpt)")
+    scene_method = "neusky-tiny" if args.synthetic_demo else "neusky"
+    bundle = _apply_overrides(METHOD_REGISTRY[scene_method].build(), overrides)
+    model_config = bundle["model_config"]
+    dm = _build_datamanager(args, model_config)
+    model_config = dataclasses.replace(model_config, num_train_data=dm.num_train, num_eval_data=max(dm.num_eval, 1))
+    model = NeuSkyModel(model_config, device=args.device)
+    params = model.init(torch.Generator(device=resolve_device(args.device)).manual_seed(0))
+    params = load_param_subtrees(Path(args.load_dir), None, params)  # full restore
+    ddf_bundle = METHOD_REGISTRY["ddf"].build()
+    tcfg = DDFTrainerConfig(
+        max_num_iterations=args.max_iterations or ddf_bundle["trainer_config"].max_num_iterations,
+        sampler=ddf_bundle["sampler_config"],
+    )
+    trainer = DDFTrainer(tcfg, model, params, datamanager=dm)
+    trainer.run(log_fn=print_record)
+    params["ddf_field"] = trainer.ddf_params
+    save_checkpoint(Path(args.output_dir), trainer.step, params, {})
+    print(f"done — DDF checkpoint in {args.output_dir}")
+
+
 def cmd_eval(args, overrides):
     if getattr(args, "protocol", None) == "nerfosr":
-        raise NotImplementedError(
-            "cli eval --protocol nerfosr (the NeRF-OSR relighting protocol) is not ported yet (ROADMAP.md §1 item 10)")
+        from neusky_torch.engine.eval_loop import run_nerfosr_eval
+
+        return run_nerfosr_eval(args, overrides)
     from neusky_torch.engine.eval_loop import run_eval
 
     run_eval(args, overrides)
@@ -183,7 +219,7 @@ def main(argv=None):
         p.add_argument("--output", default="render.npy")
         p.add_argument("--image-idx", type=int, default=0)
         p.add_argument("--protocol", default=None, choices=(None, "nerfosr"),
-                       help="eval: the NeRF-OSR session-holdout relighting benchmark (not ported yet)")
+                       help="eval: the NeRF-OSR session-holdout relighting benchmark (metrics JSON)")
         p.add_argument("--session-holdout-indices", default="0,0,0,0,0",
                        help="comma-separated per-session holdout image indices; length must equal the "
                        "scene's session count")

@@ -9,13 +9,17 @@ written with ``torch.save`` and read back with
 do not read each other; ``convert.py`` carries parameters from JAX to the
 port.
 
-The JAX package keeps its priors as orbax checkpoints.  The port reads a
-converted copy instead: ``neusky_torch/assets/<prior dir name>.npz`` holds
-the ``illumination_decoder`` tree under its flax paths
-(``illumination_decoder/params/decoder/...``) and, where the prior ships
-one, the fitted mean-sky latent under ``init_latent``.  Every training
-entry point calls :func:`load_illumination_prior` after ``model.init`` —
-without it the model trains against a random frozen decoder.
+The JAX package keeps its priors as orbax checkpoints.  The port reads its
+own prior file: a flat npz holding the ``illumination_decoder`` tree under
+its flax paths (``illumination_decoder/params/decoder/...``) and, where the
+prior ships one, the fitted mean-sky latent under ``init_latent``.  It is
+looked for first in ``illumination_prior_dir`` itself (``reni_prior.npz``,
+which ``neusky_torch/tools/train_reni_prior.py`` writes; a relative
+directory is taken from the repository root, as in JAX), then among the
+bundled conversions of the repository's orbax priors,
+``neusky_torch/assets/<prior dir name>.npz``.  Every training entry point
+calls :func:`load_illumination_prior` after ``model.init`` — without it the
+model trains against a random frozen decoder.
 """
 
 from __future__ import annotations
@@ -30,8 +34,10 @@ import torch
 
 from neusky_torch.tree import tree_items, unflatten
 
-ASSETS = Path(__file__).resolve().parent.parent / "assets"
+REPO_ROOT = Path(__file__).resolve().parent.parent.parent
+ASSETS = REPO_ROOT / "neusky_torch" / "assets"
 STATE_FILE = "state.pt"
+PRIOR_FILE = "reni_prior.npz"
 
 
 def _ckpt_dir(base: Path, step: int) -> Path:
@@ -143,10 +149,30 @@ def _subtree_mismatch(target, restored) -> Optional[str]:
 
 
 def prior_asset_path(model_config) -> Optional[Path]:
+    """The configured prior's file: ``<illumination_prior_dir>/reni_prior.npz``
+    when the directory holds one, else the bundled
+    ``assets/<dir name>.npz``; None when no prior is configured."""
     prior_dir = getattr(model_config, "illumination_prior_dir", None)
     if not prior_dir:
         return None
-    return ASSETS / f"{Path(prior_dir).name}.npz"
+    path = Path(prior_dir)
+    if not path.is_absolute():
+        path = REPO_ROOT / path
+    own = path / PRIOR_FILE
+    return own if own.exists() else ASSETS / f"{path.name}.npz"
+
+
+def save_prior(prior_dir: Path, decoder_params, init_latent=None) -> Path:
+    """Write a decoder tree (``{"params": {"decoder": ...}}``) and an
+    optional mean-sky latent [latent_dim, 3] as ``<prior_dir>/reni_prior.npz``,
+    the file :func:`load_illumination_prior` reads."""
+    prior_dir = Path(prior_dir)
+    prior_dir.mkdir(parents=True, exist_ok=True)
+    arrays = {k: v.detach().cpu().numpy() for k, v in tree_items({"illumination_decoder": decoder_params})}
+    if init_latent is not None:
+        arrays["init_latent"] = np.asarray(init_latent, np.float32)
+    np.savez(prior_dir / PRIOR_FILE, **arrays)
+    return prior_dir / PRIOR_FILE
 
 
 def prior_init_latent(model_config) -> Optional[np.ndarray]:
@@ -165,12 +191,15 @@ def load_illumination_prior(params: Dict[str, Any], model_config, init_latent: b
     """Replace ``params["illumination_decoder"]`` with the configured prior
     and (``init_latent``) seed ``train_latents`` / ``eval_latents`` with its
     mean-sky latent.  No-op when no prior is configured; raises when one is
-    configured but its converted file is missing or does not fit."""
+    configured but neither its directory nor the bundled assets hold its
+    file, or the file does not fit (JAX only warns, and a run then trains
+    against a random decoder)."""
     path = prior_asset_path(model_config)
     if path is None:
         return params
     if not path.exists():
-        raise FileNotFoundError(f"illumination prior {path} is missing")
+        raise FileNotFoundError(f"illumination prior {model_config.illumination_prior_dir!r}: no {PRIOR_FILE} "
+                                f"there and no bundled {path}")
     with np.load(path) as z:
         arrays = {k: z[k] for k in z.files}
     template = dict(tree_items({"illumination_decoder": params["illumination_decoder"]}))

@@ -1,6 +1,7 @@
 """Evaluation (mirror of ``neusky_tpu/engine/eval_loop.py``): chunked
-full-image renders, the test-time fit of the eval latents, and per-image
-PSNR / SSIM / LPIPS / MSE with rays/s and fps.
+full-image renders, the test-time fit of the eval latents, per-image
+PSNR / SSIM / LPIPS / MSE with rays/s and fps, and the NeRF-OSR relighting
+protocol.
 
 The eval forward (``train=False``) draws nothing: the proposal sampler runs
 without jitter and the light directions are the fixed icosphere, so these
@@ -9,10 +10,8 @@ functions take no generator.  The fit updates only the eval group
 detached, so autograd records just the RENI decode → Lambertian branch and
 no hash-table gradient (K1) runs.
 
-``run_eval`` and ``run_render`` are ``cli eval`` and ``cli render``.
-
-Not ported yet: ``fit_eval_rotation`` and the NeRF-OSR protocol
-(``run_nerfosr_protocol``, ``run_nerfosr_eval``, ``_load_session_envmaps``).
+``run_eval``, ``run_nerfosr_eval`` and ``run_render`` are ``cli eval``,
+``cli eval --protocol nerfosr`` and ``cli render``.
 """
 
 from __future__ import annotations
@@ -20,6 +19,8 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
+import math
+import os
 import time
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -29,10 +30,13 @@ import torch
 
 from neusky_torch.core.rays import RayBundle
 from neusky_torch.data.datamanager import DataManager, batch_to_device
+from neusky_torch.data.nerfosr_eval import global_least_squares_scale
 from neusky_torch.engine import metrics as M
 from neusky_torch.engine.checkpoint import prior_init_latent
-from neusky_torch.engine.optimizers import build_eval_latent_optimizer
+from neusky_torch.engine.optimizers import GroupedAdam, OptimizerGroupConfig, build_eval_latent_optimizer
+from neusky_torch.engine.reni_trainer import fit_latents_to_envmaps
 from neusky_torch.models.neusky import NeuSkyModel
+from neusky_torch.models.pipeline import eval_latent_loss_fn
 from neusky_torch.parallel.mesh import make_eval_latent_step
 from neusky_torch.tree import tree_map
 
@@ -159,6 +163,58 @@ def fit_eval_latents(
     return params, torch.stack(trace).cpu().tolist()
 
 
+def _z_rotations(gamma: torch.Tensor) -> torch.Tensor:
+    """Rotations about z by ``gamma`` [S] → [S, 3, 3]."""
+    c, s = torch.cos(gamma), torch.sin(gamma)
+    zeros, ones = torch.zeros_like(gamma), torch.ones_like(gamma)
+    return torch.stack([c, -s, zeros, s, c, zeros, zeros, zeros, ones], -1).reshape(-1, 3, 3)
+
+
+def fit_eval_rotation(
+    model: NeuSkyModel,
+    params,
+    protocol,
+    gt_latents: torch.Tensor,  # [S, latent_dim, 3], fitted to the sessions' envmaps
+    steps: int = 250,
+    lr: float = 1e-1,
+    lr_final: float = 1e-7,
+) -> Tuple[Dict, np.ndarray, List[float]]:
+    """The ``nerf_osr_envmap`` eval fit: the eval latents are fixed at
+    ``gt_latents`` and only a per-session rotation about z (a logit,
+    sigmoid-bounded to [0, 2π), started from ``eval_rotation`` where it has
+    one entry a session, else ones) and the eval scale (from one) are fitted,
+    by Adam (eps 1e-15, exponential decay ``lr`` → ``lr_final``) over
+    ``steps`` compare-pool batches drawn up front → (params with the fitted
+    eval group, the angles [S] in radians, the loss of every step)."""
+    s = gt_latents.shape[0]
+    dev = model.device
+    rot0 = params["eval_latents"].get("eval_rotation")
+    if rot0 is None or rot0.shape[0] != s:
+        rot0 = torch.ones((s,), device=dev)
+    q = {"rot_logit": rot0.detach().clone(), "scale": torch.ones((s,), device=dev)}
+    optimizer = GroupedAdam(q, {"q": OptimizerGroupConfig(lr=lr, eps=1e-15, schedule="exponential",
+                                                          lr_final=lr_final, max_steps=steps)},
+                            label_fn=lambda path: "q")
+    frozen = tree_map(lambda t: t.detach(), params)
+    base_eval = {**frozen["eval_latents"], "eval_latents": gt_latents.detach().to(dev)}
+    stacked = _stack_batches([protocol.lighting_eval_batch("compare") for _ in range(steps)], dev)
+    cameras = stacked.pop("cameras")
+    trace = []
+    for i in range(steps):
+        batch = {**{k: v[i] for k, v in stacked.items()}, "cameras": cameras}
+        rot = _z_rotations(torch.sigmoid(q["rot_logit"]) * 2.0 * math.pi)[batch["image_indices"]]  # [U, 3, 3]
+        p = {**frozen, "eval_latents": {**base_eval, "eval_scale": q["scale"]}}
+        optimizer.zero_grad()
+        total = eval_latent_loss_fn(model, p, batch, float(i), rotation=rot)
+        total.backward()
+        optimizer.step()
+        trace.append(total.detach())
+    gamma = (torch.sigmoid(q["rot_logit"]) * 2.0 * math.pi).detach().cpu().numpy()
+    out = {**params, "eval_latents": {**base_eval, "eval_scale": q["scale"].detach(),
+                                      "eval_rotation": q["rot_logit"].detach()}}
+    return out, gamma, torch.stack(trace).cpu().tolist()
+
+
 def eval_image_metrics(
     model: NeuSkyModel,
     params,
@@ -166,11 +222,14 @@ def eval_image_metrics(
     image_idx: int,
     chunk_fn: Optional[Callable] = None,
     chunk_size: int = 4096,
+    mask_to_building: bool = False,
 ) -> Dict[str, Any]:
     """Render eval image ``image_idx`` with its eval slot's sky and score
     it: ``psnr``, ``ssim``, ``lpips``, ``mse``, ``num_rays_per_sec`` and
     ``fps`` of the render (which ends when its maps are on the host), and
-    the maps under ``outputs``."""
+    the maps under ``outputs``.  ``mask_to_building`` multiplies the render
+    and the image by mask channel 0 first: the NeRF-OSR building mask on
+    the test split only (elsewhere channel 0 is the static mask)."""
     rb, batch = datamanager.eval_image_bundle(image_idx)
     cams = datamanager.eval_cameras if datamanager.eval_cameras is not None else datamanager.train_cameras
     h, w = cams.height, cams.width
@@ -179,6 +238,9 @@ def eval_image_metrics(
     dt = time.perf_counter() - t0
     pred = outputs["rgb"].reshape(h, w, 3)
     gt = np.asarray(batch["image"]).reshape(h, w, 3)
+    if mask_to_building:
+        building = np.asarray(batch["mask"]).reshape(h, w, 4)[..., 0:1]
+        pred, gt = pred * building, gt * building
     return {
         "psnr": M.psnr(pred, gt),
         "ssim": M.ssim_image(pred, gt),
@@ -216,6 +278,205 @@ def average_eval_metrics(
         for k in ("num_rays_per_sec", "fps"):
             out[k] = float(np.mean([m[k] for m in per_image[1:]]))
     return out
+
+
+# ---------------------------------------------------------------------------
+# the NeRF-OSR relighting protocol (session holdout → compare, building-masked)
+
+
+def run_nerfosr_protocol(
+    model: NeuSkyModel,
+    params,
+    protocol,
+    fit_steps: int = 250,
+    chunk_size: int = 4096,
+    least_squares_scale: bool = False,
+    optimise_compare_eval_scale: bool = False,
+    gt_envmaps: Optional[np.ndarray] = None,  # [S, H, W, 3] linear HDR, one a session → envmap mode
+) -> Dict[str, Any]:
+    """The NeRF-OSR relighting benchmark on ``protocol``
+    (:class:`~neusky_torch.data.nerfosr_eval.NeRFOSREvalProtocol`):
+
+    1. fit the eval latents (one slot a lighting session) on the
+       optimise pool; with ``optimise_compare_eval_scale``, fit only the
+       eval scale on the compare pool (the latents stay at their reset
+       value, as in the reference); with ``gt_envmaps``, fit latents to the
+       envmaps with the decoder frozen, then a rotation about z and the
+       scale per session on the compare pool (:func:`fit_eval_rotation`);
+    2. render every compare image with its session's sky;
+    3. score it inside the building mask (mask channel 0 of the test
+       split), optionally after the one least-squares scale.
+
+    → ``per_image``, ``mean`` (PSNR, SSIM, LPIPS, MSE and rays/s, which
+    leaves out image 0 when there are more), ``fit_loss_first``,
+    ``fit_loss_last``, ``num_sessions``, ``lpips_flavour`` and, in envmap
+    mode, ``envmap_fit_psnr`` and ``session_rotation_rad``."""
+    dev = model.device
+    session_rot = None
+    envmap_info = None
+    if gt_envmaps is not None:
+        gt_latents, envmap_psnr = fit_latents_to_envmaps(
+            model.illumination, params["illumination_decoder"], np.asarray(gt_envmaps), steps=fit_steps)
+        params, gamma, fit_losses = fit_eval_rotation(model, params, protocol, torch.from_numpy(gt_latents).to(dev),
+                                                      steps=fit_steps)
+        envmap_info = {"envmap_fit_psnr": [float(x) for x in envmap_psnr],
+                       "session_rotation_rad": [float(g) for g in gamma]}
+        # the fitted rotation is applied at render time, as in JAX: the
+        # reference registers eval_rotation but renders with the identity
+        # (``neusky_pipeline.py:423``); rendering with the rotation the scale
+        # was fitted under is the consistent choice
+        session_rot = _z_rotations(torch.as_tensor(gamma, dtype=torch.float32, device=dev))
+    else:
+        fit_pool = "compare" if optimise_compare_eval_scale else "optimise"
+        params, fit_losses = fit_eval_latents(model, params, None, steps=fit_steps,
+                                              batch_fn=lambda: protocol.lighting_eval_batch(fit_pool),
+                                              scale_only=optimise_compare_eval_scale)
+
+    chunk_fn, chunk_size = make_render_chunk_fn(model, chunk_size)
+    h, w = protocol.cameras.height, protocol.cameras.width
+    per_image = []
+    for i in range(len(protocol.compare_indices)):
+        image_idx, slot, rb, gt_batch = protocol.compare_image(i)
+        t0 = time.perf_counter()
+        out = render_camera(model, params, rb, slot, chunk_fn, chunk_size,
+                            rotation=session_rot[slot] if session_rot is not None else None)
+        dt = time.perf_counter() - t0
+        building = np.asarray(gt_batch["mask"]).reshape(h, w, 4)[..., 0:1]
+        pred = out["rgb"].reshape(h, w, 3) * building
+        gt = np.asarray(gt_batch["image"]).reshape(h, w, 3) * building
+        if least_squares_scale:
+            pred = np.clip(global_least_squares_scale(pred, gt), 0.0, None)
+        per_image.append({
+            "image_idx": int(image_idx),
+            "session": int(slot),
+            "psnr": M.psnr(pred, gt),
+            "ssim": M.ssim_image(pred, gt),
+            "lpips": M.lpips_image(pred, gt, dev),
+            "mse": M.mse(pred, gt),
+            "num_rays_per_sec": h * w / dt,
+        })
+    keys = [k for k in ("psnr", "ssim", "lpips", "mse", "num_rays_per_sec")
+            if per_image and per_image[0][k] is not None]
+    mean = {k: float(np.mean([p[k] for p in per_image])) for k in keys}
+    if len(per_image) > 1 and "num_rays_per_sec" in keys:
+        # image 0 pays the first-call costs (the same rule as average_eval_metrics)
+        mean["num_rays_per_sec"] = float(np.mean([p["num_rays_per_sec"] for p in per_image[1:]]))
+    result = {
+        "per_image": per_image,
+        "mean": mean,
+        "fit_loss_first": fit_losses[0],
+        "fit_loss_last": fit_losses[-1],
+        "num_sessions": protocol.num_sessions,
+    }
+    if envmap_info is not None:
+        result.update(envmap_info)
+    if "lpips" in keys:
+        # random-VGG LPIPS is a valid distance but not comparable to
+        # published (pretrained) numbers: always name the flavour
+        result["lpips_flavour"] = M.lpips_flavour()
+    return result
+
+
+def _load_session_envmaps(po: Dict[str, Any], width: int = 128) -> np.ndarray:
+    """One envmap a lighting session (``ENV_MAP_CC/<session>/``, in the
+    parser's session order) → [S, width / 2, width, 3] linear HDR: decoded
+    (PNG without Pillow, other formats through it), made RGB as Pillow's
+    ``convert("RGB")`` does, resized with Pillow's bilinear filter
+    (:func:`~neusky_torch.utils.viz.resize_bilinear_u8`) and linearised
+    from sRGB."""
+    from neusky_torch.core.colour import sRGB_to_linear
+    from neusky_torch.utils.viz import PNG_SIGNATURE, load_image, png_header, resize_bilinear_u8
+
+    files = po.get("envmap_filenames") or []
+    if not files:
+        raise SystemExit("eval_latent_optimise_method=nerf_osr_envmap needs envmap images under ENV_MAP_CC/<session>/")
+    # slot s is the parser's session_names[s]
+    sessions = po.get("session_names") or sorted({os.path.basename(os.path.dirname(f)) for f in files})
+    out = []
+    for s in sessions:
+        f = next((x for x in files if os.path.basename(os.path.dirname(x)) == s), None)
+        if f is None:
+            raise SystemExit(f"session {s!r} has no png/jpg envmap directly under ENV_MAP_CC/{s}/ "
+                             f"(found files: {len(files)} across sessions)")
+        with open(f, "rb") as fh:
+            if fh.read(8) == PNG_SIGNATURE and png_header(f)["colour_type"] == 3:
+                raise ValueError(f"{f}: palette PNG envmaps are not decoded")
+        img = load_image(f)
+        if img.ndim == 2:  # grey
+            img = img[..., None]
+        img = np.repeat(img[..., :1], 3, axis=-1) if img.shape[-1] in (1, 2) else img[..., :3]
+        ldr = resize_bilinear_u8(img, width, width // 2).astype(np.float32) / 255.0
+        out.append(sRGB_to_linear(torch.from_numpy(ldr)).numpy())
+    return np.stack(out)
+
+
+def run_nerfosr_eval(args, overrides):
+    """``cli eval --protocol nerfosr``: the test split of ``--data`` and its
+    sessions, the checkpoint under ``--load-dir`` (every group but the
+    per-image latents), :func:`run_nerfosr_protocol`, the result written as
+    JSON to ``--output`` (``nerfosr_eval.json`` when it is the render
+    default ``render.npy``; any other suffix becomes ``.json``) and its mean
+    printed."""
+    from neusky_torch.cli import _apply_overrides
+    from neusky_torch.configs import METHOD_REGISTRY
+    from neusky_torch.data.dataparsers.nerfosr import NeRFOSRDataparserConfig, parse_holdout_arg, parse_nerfosr_scene
+    from neusky_torch.data.dataset import NeuSkyDataset
+    from neusky_torch.data.nerfosr_eval import NeRFOSREvalProtocol
+    from neusky_torch.device import resolve_device
+    from neusky_torch.engine.checkpoint import load_param_subtrees
+
+    if not args.load_dir:
+        raise SystemExit("--load-dir required for the nerfosr protocol")
+    bundle = _apply_overrides(METHOD_REGISTRY[args.method].build(), overrides)
+    model_config = bundle["model_config"]
+    parser_cfg = NeRFOSRDataparserConfig(
+        data=args.data, scene=args.scene,
+        session_holdout_indices=parse_holdout_arg(getattr(args, "session_holdout_indices", "0,0,0,0,0")),
+    )
+    train_po = parse_nerfosr_scene(parser_cfg, "train")
+    test_po = parse_nerfosr_scene(parser_cfg, "test")
+    test_data = NeuSkyDataset(test_po, "test", args.downscale).load()
+    device = resolve_device(args.device)
+    protocol = NeRFOSREvalProtocol(
+        cameras=test_data["cameras"].to(device),
+        images=test_data["images"],
+        masks=test_data["masks"],
+        session_to_indices=test_po["session_to_indices"],
+        indices_to_session=test_po["indices_to_session"],
+        session_holdout_indices=test_po["session_holdout_indices"],
+        test_eval_mask_indices=sorted(test_po["test_eval_mask_dict"].keys()),
+    )
+    # eval slots are lighting sessions; the train latents are sized as the
+    # training run's, though the protocol neither reads nor restores them
+    model_config = dataclasses.replace(model_config, num_train_data=len(train_po["image_filenames"]),
+                                       num_eval_data=protocol.num_sessions)
+    model = NeuSkyModel(model_config, device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    # the per-image latent groups are left out: the eval latents are refit
+    # (a slot a session here), and the train latents belong to the training
+    # images, so a run with another train-image count still restores
+    params = load_param_subtrees(Path(args.load_dir), None, params, exclude=("eval_latents", "illumination_field"))
+    gt_envmaps = None
+    if model_config.eval_latent_optimise_method == "nerf_osr_envmap":
+        gt_envmaps = _load_session_envmaps(test_po, width=128)
+    pipe_cfg = bundle.get("pipeline_config")
+    result = run_nerfosr_protocol(
+        model, params, protocol,
+        least_squares_scale=bool(getattr(pipe_cfg, "least_squares_global_scale", False)),
+        optimise_compare_eval_scale=model_config.optimise_compare_eval_scale,
+        gt_envmaps=gt_envmaps,
+    )
+    # --output is shared with ``render``, whose default is render.npy
+    raw_out = getattr(args, "output", "")
+    if not raw_out or raw_out == "render.npy":
+        raw_out = "nerfosr_eval.json"
+    out_path = Path(raw_out)
+    if out_path.suffix != ".json":
+        out_path = out_path.with_suffix(".json")
+    out_path.write_text(json.dumps(result, indent=2))
+    print(json.dumps(result["mean"]), flush=True)
+    print(f"wrote {out_path}")
+    return result
 
 
 # ---------------------------------------------------------------------------

@@ -130,3 +130,10 @@ class RENIField:
         rgb = rgb + (torch.clamp(rgb, -1.0, 1.0) - rgb).detach()
         log_val = (rgb + 1.0) / 2.0 * (c.log_domain_max - c.log_domain_min) + c.log_domain_min
         return torch.exp(log_val)
+
+    def normalise(self, hdr: torch.Tensor) -> torch.Tensor:
+        """Linear HDR → the normalised log domain (inverse of
+        :meth:`unnormalise` inside it)."""
+        c = self.config
+        log_val = torch.log(torch.clamp(hdr, min=1e-8))
+        return 2.0 * (log_val - c.log_domain_min) / (c.log_domain_max - c.log_domain_min) - 1.0

@@ -1,10 +1,12 @@
 """Colormaps, side-by-side panels and PNG files, on the host with numpy
 (the port's own copy of ``neusky_tpu/utils/viz.py``).  ``save_png``,
 ``save_png_u8`` and ``load_png`` write and read PNGs with ``zlib`` and
-``struct`` alone: the card's machine has no Pillow."""
+``struct`` alone, and ``resize_bilinear_u8`` resizes as Pillow's bilinear
+filter does: the card's machine has no Pillow."""
 
 from __future__ import annotations
 
+import math
 import struct
 import zlib
 from typing import Optional
@@ -218,6 +220,66 @@ def load_image(path) -> np.ndarray:
         raise RuntimeError(f"{path} is not a PNG; decoding it needs Pillow, which is not installed") from e
     with Image.open(path) as im:
         return np.asarray(im)
+
+
+_RESAMPLE_BITS = 22  # Pillow's PRECISION_BITS for 8-bit images: 32 - 8 - 2
+
+
+def _bilinear_weights(in_size: int, out_size: int):
+    """Pillow's ``precompute_coeffs`` for its triangle filter (support 1,
+    widened by the scale when downsampling) and ``normalize_coeffs_8bpc``:
+    → (first input index [out], fixed-point weights [out, k]), in float64
+    summed in Pillow's order, rounded half away from zero to 22 bits."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    first = np.zeros(out_size, np.int64)
+    weights = np.zeros((out_size, ksize), np.int64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        k = [max(0.0, 1.0 - abs((x + xmin - center + 0.5) / filterscale)) for x in range(xmax)]
+        ww = 0.0
+        for w in k:
+            ww += w
+        for x, w in enumerate(k):
+            w = w / ww if ww != 0.0 else w
+            weights[xx, x] = int(0.5 + w * (1 << _RESAMPLE_BITS))  # w >= 0: rounding half up
+        first[xx] = xmin
+    return first, weights
+
+
+def _resample_axis0(img: np.ndarray, out_size: int) -> np.ndarray:
+    """One separable pass along axis 0 of a uint8 image, rounded to uint8
+    as Pillow rounds each pass."""
+    first, weights = _bilinear_weights(img.shape[0], out_size)
+    src = img.astype(np.int64)
+    acc = np.full((out_size,) + img.shape[1:], 1 << (_RESAMPLE_BITS - 1), np.int64)
+    for x in range(weights.shape[1]):
+        rows = np.minimum(first + x, img.shape[0] - 1)  # weights past a window's end are 0
+        acc += src[rows] * weights[:, x].reshape((-1,) + (1,) * (img.ndim - 1))
+    return np.clip(acc >> _RESAMPLE_BITS, 0, 255).astype(np.uint8)
+
+
+def resize_bilinear_u8(image: np.ndarray, width: int, height: int) -> np.ndarray:
+    """A uint8 [H, W] or [H, W, C] image resized to [height, width] as
+    Pillow's ``Image.resize((width, height), Image.BILINEAR)`` does it: a
+    triangle filter at half-pixel centres (widened when downsampling), a
+    horizontal then a vertical pass with 22-bit fixed-point weights, each
+    rounded to uint8.  The result equals Pillow's byte for byte."""
+    img = np.asarray(image)
+    if img.dtype != np.uint8:
+        raise ValueError(f"resize_bilinear_u8 takes uint8, got {img.dtype}")
+    h, w = img.shape[:2]
+    if (h, w) == (height, width):
+        return img.copy()
+    if width != w:
+        img = np.swapaxes(_resample_axis0(np.swapaxes(img, 0, 1), width), 0, 1)
+    if height != h:
+        img = _resample_axis0(img, height)
+    return np.ascontiguousarray(img)
 
 
 def image_size(path) -> tuple:

@@ -252,8 +252,12 @@ def test_cli_module_runs_as_a_program(tmp_path):
     (["eval", "neusky-tiny", "--synthetic-demo", "--protocol", "nerfosr"], "item 10"),
 ])
 def test_unported_commands_raise(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """The two commands that raised ``NotImplementedError``, naming a
+    roadmap item, are ported: without ``--load-dir`` they exit as JAX's do,
+    naming the flag and no roadmap item."""
+    with pytest.raises(SystemExit, match="--load-dir") as e:
         t_cli.main(argv + ["--device", "cpu"])
+    assert item not in str(e.value)
 
 
 def test_unparsed_argument_exits():

@@ -49,9 +49,11 @@ def _entry_points():
     from neusky_torch.configs.neusky_config import neusky_model_config
     from neusky_torch.data.datamanager import DataManager, DataManagerConfig
     from neusky_torch.data.synthetic import SyntheticSceneConfig, generate_synthetic_scene
+    from neusky_torch.engine.reni_trainer import RENITrainer, RENITrainerConfig
     from neusky_torch.engine.trainer import Trainer, TrainerConfig
     from neusky_torch.models.neusky import NeuSkyModel
     from neusky_torch.models.pipeline import PipelineConfig
+    from neusky_torch.tools import train_reni_prior
 
     cfg = neusky_model_config(2, 1)
     scene = generate_synthetic_scene(SyntheticSceneConfig(num_cameras=2, width=8, height=8))
@@ -66,10 +68,12 @@ def _entry_points():
                         scene["masks"], device="cpu"),
         ),
         "cli": lambda: cli.main(["train", "neusky-tiny", "--synthetic-demo"]),
+        "reni_trainer": lambda: RENITrainer(RENITrainerConfig(), np.ones((1, 4, 8, 3), np.float32)),
+        "reni_prior_script": lambda: train_reni_prior.main(["--quick", "--steps", "1"]),
     }
 
 
-@pytest.mark.parametrize("name", ["model", "datamanager", "trainer", "cli"])
+@pytest.mark.parametrize("name", ["model", "datamanager", "trainer", "cli", "reni_trainer", "reni_prior_script"])
 def test_entry_point_without_cpu_raises_when_cuda_absent(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -95,9 +99,17 @@ def _module_level_imports(tree):
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(REPO)))
 def test_port_imports_no_optional_package_at_module_level(path):
     """The card's machine has neither Pillow nor plyfile: the port imports
-    them only inside the functions that fall back to them."""
+    them only inside the functions that fall back to them; ``triton``
+    only where a kernel is built, never at import (this box has none)."""
     names = _module_level_imports(ast.parse(path.read_text(), filename=str(path)))
-    assert not [n for n in names if n.split(".")[0] in ("PIL", "plyfile")], path
+    assert not [n for n in names if n.split(".")[0] in ("PIL", "plyfile", "triton")], path
+
+
+def test_guards_cover_the_trainers_and_the_protocol():
+    guarded = {str(p.relative_to(REPO)) for p in _port_files()}
+    assert {f"neusky_torch/{m}.py" for m in (
+        "data/sky_generator", "data/nerfosr_eval", "engine/reni_trainer", "engine/reni_convert",
+        "engine/ddf_trainer", "tools/train_reni_prior")} <= guarded
 
 
 def test_module_level_import_scan_sees_top_level_and_skips_functions():
@@ -191,10 +203,85 @@ def write_prior_asset(name: str = PRIOR) -> Path:
     return out
 
 
-def test_committed_prior_equals_orbax_restore():
-    committed = np.load(Path(neusky_torch.__file__).parent / "assets" / f"{PRIOR}.npz")
-    restored = read_orbax_prior()
+IN_REPO_PRIORS = ("reni_prior_variational", "reni_prior_latent100", "reni_prior_var_kl1e2")
+
+
+@pytest.mark.parametrize("name", IN_REPO_PRIORS)
+def test_committed_prior_equals_orbax_restore(name):
+    committed = np.load(Path(neusky_torch.__file__).parent / "assets" / f"{name}.npz")
+    restored = read_orbax_prior(name)
     assert sorted(committed.files) == sorted(restored)
     for k, v in restored.items():
         assert committed[k].dtype == v.dtype, k
         np.testing.assert_array_equal(committed[k], v, err_msg=k)
+
+
+def _prior_templates(latent_dim=100):
+    """A decoder, 3 train and 2 eval latent slots: (JAX's tree, the port's)."""
+    import jax
+    import jax.numpy as jnp
+
+    from neusky_tpu.fields.reni import RENIField as JField
+    from neusky_torch.configs.neusky_config import neusky_model_config
+    from torch_parity import jax_to_torch_params
+
+    cfg = neusky_model_config(3, 2).illumination
+    decoder = JField(cfg).init(jax.random.PRNGKey(5), jnp.zeros((2, 3)), jnp.zeros((2, latent_dim, 3)))
+    tree = {"illumination_decoder": decoder,
+            "illumination_field": {"train_latents": jnp.zeros((3, latent_dim, 3)), "train_scale": jnp.ones(3)},
+            "eval_latents": {"eval_latents": jnp.zeros((2, latent_dim, 3)), "eval_scale": jnp.ones(2),
+                             "eval_rotation": jnp.ones(2)}}
+    return tree, jax_to_torch_params(tree)
+
+
+@pytest.mark.parametrize("name", IN_REPO_PRIORS)
+def test_in_repo_prior_dirs_load_the_decoder_jax_loads(name):
+    """``illumination_prior_dir="checkpoints/<name>"`` (relative to the
+    repository root): the decoder and the seeded latents JAX loads."""
+    from types import SimpleNamespace
+
+    from neusky_tpu.engine.checkpoint import load_illumination_prior as j_load
+    from neusky_torch.engine.checkpoint import load_illumination_prior as t_load, prior_init_latent
+    from torch_parity import flat_jax
+    from neusky_torch.tree import tree_items
+
+    cfg = SimpleNamespace(illumination_prior_dir=f"checkpoints/{name}")
+    tree_j, tree_t = _prior_templates()
+    want = flat_jax(j_load(tree_j, cfg))
+    got = dict(tree_items(t_load(tree_t, cfg)))
+    assert sorted(got) == sorted(want)
+    for k, v in got.items():
+        np.testing.assert_array_equal(v.numpy(), want[k], err_msg=k)
+    seeded = (REPO / "checkpoints" / name / "init_latent.npz").exists()
+    assert seeded == (prior_init_latent(cfg) is not None)
+    assert seeded == bool(np.abs(want["eval_latents/eval_latents"]).max() > 0)
+
+
+def test_prior_dir_with_a_port_prior_file_loads_it(tmp_path):
+    """A port-format prior written into a directory (``save_prior``) wins
+    over the bundled asset of the same name; a missing prior raises."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from neusky_torch.engine.checkpoint import PRIOR_FILE, load_illumination_prior, prior_asset_path, save_prior
+    from neusky_torch.tree import tree_items, tree_map
+
+    _, tree = _prior_templates()
+    decoder = tree_map(lambda t: t + 0.5, tree["illumination_decoder"])
+    z0 = np.random.default_rng(0).normal(size=(100, 3)).astype(np.float32)
+    prior_dir = tmp_path / PRIOR
+    save_prior(prior_dir, decoder, init_latent=z0)
+    cfg = SimpleNamespace(illumination_prior_dir=str(prior_dir))
+    assert prior_asset_path(cfg) == prior_dir / PRIOR_FILE
+    loaded = load_illumination_prior(tree, cfg)
+    want = dict(tree_items({"illumination_decoder": decoder}))
+    for k, v in tree_items({"illumination_decoder": loaded["illumination_decoder"]}):
+        assert torch.equal(v, want[k]), k
+    for group, key in (("illumination_field", "train_latents"), ("eval_latents", "eval_latents")):
+        assert all(np.array_equal(row, z0) for row in loaded[group][key].numpy())
+    assert prior_asset_path(SimpleNamespace(illumination_prior_dir=str(tmp_path / "empty"))).parent == \
+        Path(neusky_torch.__file__).parent / "assets"
+    with pytest.raises(FileNotFoundError, match="no reni_prior.npz there"):
+        load_illumination_prior(tree, SimpleNamespace(illumination_prior_dir=str(tmp_path / "empty")))
+    assert load_illumination_prior(tree, SimpleNamespace(illumination_prior_dir=None)) is tree
