@@ -72,8 +72,23 @@ Phases (any failure exits non-zero; no phase's failure is passed over):
    step timed and profiled; then a 5-step
    trainer chunk and a 5-step envmap fit on the card against the CPU on
    the same draws;
-10. one JSON line listing every kernel (K1 per joint step, on the joint
-   path's own inputs), the card line, and the final
+10. the configuration the JAX package's bench measures (``bench.py:85-118``),
+   at full width: first a small step of (b) on the card against the CPU
+   (the canonical widths on 2 images × 16 rays, the level-set query in
+   chunks of 512 points), then (a) ``NEUSKY_BF16_MAPPING=1`` through
+   ``apply_env_knobs(neusky_model_config(8, 2))``, bench's pipeline (8 ×
+   128 vMF rays at κ = 20, 256 sky rays), the synthetic scene with 8 × 128
+   rays a step from the C++ sampler, the converted prior and the five Adam
+   groups for 100,001 steps; and (b) the same with every knob this slice
+   ports (``NEUSKY_FUSED_GT=1``, ``NEUSKY_VIS_REMAT=dots``,
+   ``NEUSKY_FILM_HEADS=1``, ``NEUSKY_BENCH_BF16=1``) and the level-set query
+   in chunks of 16,384 points.  Each run sets its knobs and restores them
+   after; 3 warm-up steps and 4 timed steps, K1's count zeroed before and
+   read after every step (7 a step in (a), 9 in (b)), the peak memory,
+   K1 against its plain version and timed on one step's own inputs, one
+   profiled step;
+11. one JSON line listing every kernel (K1 per step of (b), on its own
+   inputs, with their shapes), the card line, and the final
    ``{"ok": true, "device": ...}`` line.
 """
 
@@ -84,6 +99,7 @@ import dataclasses
 import io
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -94,20 +110,23 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from neusky_torch.configs import env_overrides
 from neusky_torch.configs.neusky_config import neusky_model_config, neusky_pipeline_config
 from neusky_torch.data.datamanager import DataManager, DataManagerConfig
 from neusky_torch.data.pixel_sampler import PixelSamplerConfig
 from neusky_torch.data.synthetic import SyntheticSceneConfig, generate_synthetic_scene
 from neusky_torch.engine import metrics
 from neusky_torch.engine.checkpoint import load_illumination_prior, prior_asset_path
+from neusky_torch.engine.optimizers import default_neusky_optimizer_groups
 from neusky_torch.engine.eval_loop import (
     average_eval_metrics, eval_image_metrics, fit_eval_latents, make_render_chunk_fn, render_camera,
 )
 from neusky_torch.engine.trainer import Trainer, TrainerConfig
 from neusky_torch.models.neusky import NeuSkyModel, visibility_query_directions
-from neusky_torch.models.pipeline import draw_ddf_fit, train_loss_fn
+from neusky_torch.models.pipeline import PipelineConfig, draw_ddf_fit, train_loss_fn
 from neusky_torch.ops import hashgrid, hashgrid_cuda as k1
 from neusky_torch.ops.hashgrid import HashGridEncoding
+from neusky_torch.sampling.ddf_sampler import DDFSamplerConfig
 from neusky_torch.sampling.illumination import IcosahedronSampler
 from neusky_torch.tree import tree_items, tree_map
 
@@ -202,16 +221,25 @@ def k1_sites(model_cfg, pipeline_cfg, n_rays: int):
     SDF.  With the DDF fit: the SDF of the ground-truth pass over the vMF
     rays and the DDF-fit SDF query at the predicted termination points
     (exact).  With DDF visibility: the level-set SDF query at the strided
-    subset of termination points.  The ground-truth pass's proposal
-    encodes feed only the resampling, which no gradient passes, and the
-    canonical DDF (NeRF encodings) calls no hash grid."""
+    subset of termination points, one launch per chunk of
+    ``sdf_query_chunk`` points when that is set.  The ground-truth pass's
+    proposal encodes feed only the resampling, which no gradient passes,
+    and the canonical DDF (NeRF encodings) calls no hash grid.  With the
+    fused pass (``fused_ddf_gt_pass``) the scene and vMF rays share one
+    proposal and field pass: its three encodes take both ray sets' points
+    in one launch each, and the ground-truth pass has none of its own."""
     prop = model_cfg.proposal
     sh = model_cfg.sdf_field.hash
     sdf_rows = _rows_per_point(model_cfg.sdf_field.stochastic_table_grads)
-    sites = [(f"proposal_field_{i}", pf.hash, n_rays * prop.num_proposal_samples[i],
+    fit = model_cfg.ddf is not None and model_cfg.fit_visibility_field
+    s = pipeline_cfg.visibility_train_sampler
+    n_vmf = s.num_samples_on_sphere * s.num_rays_per_sample if fit else 0
+    fused = fit and model_cfg.fused_ddf_gt_pass and not pipeline_cfg.stop_sdf_gradients
+    n_pass = n_rays + n_vmf if fused else n_rays
+    sites = [(f"proposal_field_{i}", pf.hash, n_pass * prop.num_proposal_samples[i],
               _rows_per_point(pf.stochastic_table_grad))
              for i, pf in enumerate(model_cfg.proposal_fields)]
-    sites.append(("sdf_field_outputs", sh, n_rays * prop.num_final_samples, sdf_rows))
+    sites.append(("sdf_field_outputs", sh, n_pass * prop.num_final_samples, sdf_rows))
     if model_cfg.losses.hashgrid_density:
         sites.append(("density_grid_sdf", sh, model_cfg.losses.hashgrid_density_grid_resolution ** 3, sdf_rows))
     if model_cfg.ddf is None:
@@ -220,11 +248,12 @@ def k1_sites(model_cfg, pipeline_cfg, n_rays: int):
         d = visibility_query_directions(
             model_cfg, IcosahedronSampler(model_cfg.num_illumination_directions).actual_num_directions)
         sub = model_cfg.sdf_level_set_subset
-        sites.append(("level_set_sdf", sh, n_rays * (sub if sub and sub < d else d), sdf_rows))
-    if model_cfg.fit_visibility_field:
-        s = pipeline_cfg.visibility_train_sampler
-        n_vmf = s.num_samples_on_sphere * s.num_rays_per_sample
-        sites.append(("ddf_gt_sdf_field_outputs", sh, n_vmf * prop.num_final_samples, sdf_rows))
+        m = n_rays * (sub if sub and sub < d else d)
+        chunk = model_cfg.sdf_query_chunk or m
+        sites += [("level_set_sdf", sh, min(chunk, m - start), sdf_rows) for start in range(0, m, chunk)]
+    if fit:
+        if not fused:
+            sites.append(("ddf_gt_sdf_field_outputs", sh, n_vmf * prop.num_final_samples, sdf_rows))
         sites.append(("ddf_fit_sdf", sh, n_vmf, 8))
     return sites
 
@@ -338,7 +367,7 @@ def check_k1_main_path_inputs(model_cfg, pipeline_cfg, n_rays: int, captured):
     names = {}
     for name, h, n, rpp in k1_sites(model_cfg, pipeline_cfg, n_rays):
         key = (h.num_levels, n * rpp)
-        names[key] = f"{names[key]}|{name}" if key in names else name
+        names[key] = f"{names[key]}|{name}" if key in names and name not in names[key].split("|") else name
     want = sorted((h.num_levels, n * rpp) for _, h, n, rpp in k1_sites(model_cfg, pipeline_cfg, n_rays))
     got = sorted((r.shape[0], r.shape[1]) for r, _, _ in captured)
     check(want == got, f"captured K1 inputs {got} are not the sites {want}")
@@ -357,10 +386,11 @@ def scene_config(**kw):
     )
 
 
-def expected_launches_per_step(cfg, pipeline_cfg) -> int:
+def expected_launches_per_step(cfg, pipeline_cfg, n_rays: int = 8 * 128) -> int:
     """K1 launches once per differentiated hash-grid encode
-    (:func:`k1_sites`): 4 a scene step, 7 a joint step."""
-    return len(k1_sites(cfg, pipeline_cfg, 1))
+    (:func:`k1_sites`): 4 a scene step, 7 a joint step, 9 a fused joint
+    step with the level-set query in 4 chunks."""
+    return len(k1_sites(cfg, pipeline_cfg, n_rays))
 
 
 # ---------------------------------------------------------------------------
@@ -387,14 +417,57 @@ def small_configs(joint: bool):
     return cfg, pcfg
 
 
-def check_step_cuda_vs_cpu(joint: bool):
+def rounds_cotangent(cfg, key: str) -> bool:
+    """Whether the parameter ``key`` is the kernel of a bf16 product, whose
+    cotangent both sides round to bfloat16 (as JAX does at the cast) at
+    each use: the DDF's FiLM kernels, its mapping kernels with the bf16
+    mapping, the SDF field's geometry and colour kernels with bf16 MLPs."""
+    f = cfg.ddf.field if cfg.ddf is not None else None
+    if key.startswith("ddf_field/") and f is not None:
+        return bool((f.use_bf16_compute and "/film_kernel_" in key)
+                    or (f.use_bf16_mapping and "/MappingNetwork_0/kernel_" in key))
+    if key.startswith("fields/"):
+        leaf = key.split("/")
+        return bool(cfg.sdf_field.use_bf16_compute and leaf[-1] == "kernel"
+                    and leaf[-2].split("_")[0] in ("geo", "col"))
+    return False
+
+
+def grad_close(got: torch.Tensor, want: torch.Tensor, rel: float, bf16_cotangent: bool) -> bool:
+    """Every element within ``rel`` of the array's largest.  A gradient whose
+    cotangent both sides round to bfloat16 (:func:`rounds_cotangent`) may
+    besides round to the neighbouring bfloat16 value where the card's and
+    the CPU's float32 sums straddle a rounding boundary: 2⁻⁷ of the element
+    at most (of the term of one use, where several uses add up)."""
+    allow = rel * want.abs().max()
+    if bf16_cotangent:
+        allow = allow + 2.0**-7 * want.abs()
+    return bool(((got - want).abs() <= allow).all())
+
+
+def check_step_cuda_vs_cpu(joint: bool, knobs=None, sdf_query_chunk: int = 0):
     """The same params, batch and draws through train_loss_fn on the card
     (K1) and on the CPU (plain scatter), 2 images × 16 rays.  Losses must
     agree to 1e-4 relative and every gradient array to 2e-3 of its largest
     entry (fp32 with other reduction orders and atomics); the DDF's to 5e-3
     (its bf16-rounded FiLM inputs may round to the neighbouring bf16 value
-    where the card's and the CPU's float32 sums differ in the last bits)."""
+    where the card's and the CPU's float32 sums differ in the last bits);
+    a kernel of a bf16 product, whose cotangent both sides round to
+    bfloat16, may besides differ by one bf16 step of each element
+    (:func:`rounds_cotangent`, :func:`grad_close`).
+    With ``knobs`` (phase 10's (b): the fused pass, the bf16 mapping with
+    per-layer heads, ``dots``, bf16 SDF MLPs) and the level-set query in
+    chunks, more values are rounded to bfloat16 where the two sums may
+    differ in the last bit (the mapping outputs, the SDF and colour MLPs'
+    products and cotangents; a flip moves an element by up to 2⁻⁷ of it):
+    losses to 1e-3 relative, the SDF field's and the DDF's gradients to
+    5e-2 of scale, as the CPU tests against JAX hold the same step
+    (``tests/test_torch_fused.py``)."""
     cfg, pcfg = small_configs(joint)
+    if knobs is not None:
+        with knobs_set(knobs):
+            cfg = dataclasses.replace(env_overrides.apply_env_knobs(cfg), sdf_query_chunk=sdf_query_chunk)
+    loss_rtol, grad_rel = (1e-4, {"ddf_field": 5e-3}) if knobs is None else (1e-3, {"ddf_field": 5e-2, "fields": 5e-2})
     scene = generate_synthetic_scene(SyntheticSceneConfig(num_cameras=2, width=32, height=32))
     out = {}
     cpu_model = NeuSkyModel(cfg, device="cpu")
@@ -403,10 +476,13 @@ def check_step_cuda_vs_cpu(joint: bool):
                      scene["cameras"], scene["images"], scene["masks"], device="cpu")
     batch = dm.next_train(0)
     gen = torch.Generator().manual_seed(4)
-    draws = cpu_model.draw(None, gen, batch["pixel_coords"].shape[0])
+    n_rays = batch["pixel_coords"].shape[0]
+    s = pcfg.visibility_train_sampler
+    fused = joint and cfg.fused_ddf_gt_pass
+    draws = cpu_model.draw(None, gen, n_rays + (s.num_samples_on_sphere * s.num_rays_per_sample if fused else 0))
     if joint:
-        draws["ddf"] = draw_ddf_fit(cpu_model, pcfg, None, gen)
-    expected = expected_launches_per_step(cfg, pcfg)
+        draws["ddf"] = draw_ddf_fit(cpu_model, pcfg, None, gen, with_gt=not fused)
+    expected = expected_launches_per_step(cfg, pcfg, n_rays)
     for dev in ("cpu", "cuda"):
         model = NeuSkyModel(cfg, device=dev)
         params = tree_map(lambda x: x.detach().clone().to(dev), params0)
@@ -426,9 +502,9 @@ def check_step_cuda_vs_cpu(joint: bool):
                     {k: v.grad.detach().cpu() for k, v in tree_items(params) if v.grad is not None})
     (tc, lc, gc), (tg, lg, gg) = out["cpu"], out["cuda"]
     bad = []
-    if not (math.isfinite(tg) and abs(tg - tc) <= 1e-4 * abs(tc)):
+    if not (math.isfinite(tg) and abs(tg - tc) <= loss_rtol * abs(tc)):
         bad.append(("total", tg, tc))
-    bad += [(k, lg[k], lc[k]) for k in lc if not abs(lg[k] - lc[k]) <= 1e-4 * abs(lc[k]) + 1e-7]
+    bad += [(k, lg[k], lc[k]) for k in lc if not abs(lg[k] - lc[k]) <= loss_rtol * abs(lc[k]) + 1e-7]
     worst = {}
     for k in gc:
         scale = float(gc[k].abs().max())
@@ -437,9 +513,10 @@ def check_step_cuda_vs_cpu(joint: bool):
         rel = float((gg[k] - gc[k]).abs().max()) / scale
         group = k.split("/")[0]
         worst[group] = max(worst.get(group, 0.0), rel)
-        if rel > (5e-3 if group == "ddf_field" else 2e-3):
+        if not grad_close(gg[k], gc[k], grad_rel.get(group, 2e-3), rounds_cotangent(cfg, k)):
             bad.append((k, rel))
-    label = "joint" if joint else "scene"
+    label = ("joint" if joint else "scene") + ("" if knobs is None else " (b) " + json.dumps(knobs)
+                                               + f" sdf_query_chunk {sdf_query_chunk}")
     log(f"{label} step on the card vs the CPU: total {tg:.6f} vs {tc:.6f}; K1 launches {expected}; "
         f"worst grad rel err by group " + json.dumps({k: float(f"{v:.3g}") for k, v in worst.items()}))
     check(not bad, f"{label} step on the card differs from the CPU: {bad}")
@@ -548,7 +625,7 @@ def profile_call(fn, wall_s: float, card: str, label: str, top: int = 15):
             longest[e.name] = max(longest.get(e.name, 0.0), e.time_range.elapsed_us())
     if not by_name:
         log(f"{label} profile: the profiler saw no device events; device time not measured")
-        return
+        return None
     device_ms = sum(us for _, us in by_name.values()) / 1e3
     n_kernels = sum(n for n, _ in by_name.values())
     k1_ms = sum(us for name, (_, us) in by_name.items() if "scatter_levels_kernel" in name) / 1e3
@@ -569,6 +646,8 @@ def profile_call(fn, wall_s: float, card: str, label: str, top: int = 15):
                                   for k, (n, us) in sorted(by_kind.items(), key=lambda kv: -kv[1][1])))
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
         log(f"  {us / 1e3:9.3f} ms  {n:5d}x  {name[:110]}")
+    return {"device_ms": device_ms, "busy_share": device_ms / (wall_s * 1e3), "ops": n_kernels,
+            "by_kind_ms": {k: us / 1e3 for k, (_, us) in by_kind.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -1098,6 +1177,110 @@ def check_reni_cuda_vs_cpu(card: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the configuration JAX's bench measures
+
+
+BENCH_KNOBS = {"NEUSKY_BF16_MAPPING": "1"}  # bench.py:85
+# (b): every knob this slice ports turned on, with the level-set query chunked
+ALL_SLICE_KNOBS = {**BENCH_KNOBS, "NEUSKY_FUSED_GT": "1", "NEUSKY_VIS_REMAT": "dots", "NEUSKY_FILM_HEADS": "1",
+                   "NEUSKY_BENCH_BF16": "1"}
+SDF_QUERY_CHUNK = 16384  # the level-set query's 1,024 × 64 points in 4 launches
+BENCH_WARMUP, BENCH_STEPS = 3, 4
+
+
+@contextlib.contextmanager
+def knobs_set(knobs):
+    """Exactly ``knobs`` among the ``NEUSKY_*`` variables inside the block;
+    the environment as it was after it."""
+    saved = {k: os.environ.pop(k, None) for k in env_overrides.KNOBS}
+    os.environ.update(knobs)
+    try:
+        yield
+    finally:
+        for k in env_overrides.KNOBS:
+            os.environ.pop(k, None)
+            if saved[k] is not None:
+                os.environ[k] = saved[k]
+
+
+def bench_pipeline() -> PipelineConfig:
+    """``bench.py:91-97``: 8 × 128 vMF rays at κ = 20, 256 sky rays."""
+    return PipelineConfig(visibility_train_sampler=DDFSamplerConfig(
+        num_samples_on_sphere=8, num_rays_per_sample=128, only_sample_upper_hemisphere=True, concentration=20.0),
+        num_sky_rays=256)
+
+
+def run_bench_config(label: str, knobs, sdf_query_chunk: int, card: str):
+    """What ``bench.py:85-118`` builds, with ``knobs`` set (and restored
+    after): ``apply_env_knobs(neusky_model_config(8, 2))``, bench's pipeline,
+    the synthetic scene (8 cameras, 64×64) with 8 × 128 rays a step from
+    the native sampler, the converted prior and the five Adam groups for
+    100,001 steps.  BENCH_WARMUP steps, then BENCH_STEPS timed steps (each
+    synchronised); K1's count zeroed before and read after every step; then
+    one step keeping K1's inputs and one profiled step."""
+    with knobs_set(knobs):
+        cfg = dataclasses.replace(env_overrides.apply_env_knobs(neusky_model_config(8, 2)),
+                                  sdf_query_chunk=sdf_query_chunk)
+        log(f"{label}: knobs " + json.dumps(env_overrides.knob_summary()) + f", sdf_query_chunk {sdf_query_chunk}; "
+            "effective " + json.dumps(env_overrides.effective_summary(cfg)))
+        pcfg = bench_pipeline()
+        scene = generate_synthetic_scene(SyntheticSceneConfig(num_cameras=8, width=64, height=64))
+        dm = DataManager(DataManagerConfig(pixel_sampler=PixelSamplerConfig(images_per_batch=8, rays_per_image=128),
+                                           num_sky_rays=256, use_native_sampler=True),
+                         scene["cameras"], scene["images"], scene["masks"], device="cuda")
+        trainer = Trainer(TrainerConfig(max_num_iterations=100001, steps_per_log=1, seed=0),
+                          NeuSkyModel(cfg, device="cuda"), pcfg, dm,
+                          optimizer_groups=default_neusky_optimizer_groups(100001), device="cuda")
+        n_rays, n_counted = 8 * 128, trainer._count_rays(dm.next_train(0))
+        expected = expected_launches_per_step(cfg, pcfg, n_rays)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k1.launches[k1.KERNEL_NAME] = 0
+        per_step, times = [], []
+        for s in range(BENCH_WARMUP + BENCH_STEPS):
+            before = k1_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec = trainer.run(1)[-1]
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            per_step.append(k1_launches() - before)
+            bad = {k: v for k, v in rec.items() if isinstance(v, float) and not math.isfinite(v)}
+            check(not bad, f"{label} step {s}: non-finite {bad}")
+            log(f"{label} step {s}{' (warm-up)' if s < BENCH_WARMUP else ''}: {times[-1] * 1e3:.1f} ms; K1 launches "
+                f"{per_step[-1]}; total loss {rec['total_loss']:.6f}")
+        launches = k1_launches()
+        check(per_step == [expected] * len(per_step), f"{label}: K1 launches per step {per_step}, expected {expected}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steady = float(np.mean(times[BENCH_WARMUP:]))
+        log(f"{label} steady step (mean of {BENCH_STEPS} after {BENCH_WARMUP} warm-up): {steady * 1e3:.3f} ms, "
+            f"{n_rays / steady:.1f} scene rays/s, {n_counted / steady:.1f} counted rays/s; peak device memory "
+            f"{peak:.3f} GiB ({card})")
+        captured = capture_k1_inputs(trainer)
+        prof = profile_call(lambda: trainer.run(1), steady, card, f"{label} step")
+        sites = check_k1_main_path_inputs(cfg, pcfg, n_rays, captured)
+        del captured, trainer, dm
+    return {"label": label, "steady_ms": steady * 1e3, "scene_rays_per_s": n_rays / steady,
+            "counted_rays_per_s": n_counted / steady, "peak_gib": peak, "k1_per_step": expected,
+            "k1_launches": launches, "busy_share": prof and prof["busy_share"],
+            "device_ms": prof and prof["device_ms"], "matmul_ms": prof and prof["by_kind_ms"].get("matmul", 0.0),
+            "k1_ms_per_step": sum(r["ms"] for r in sites), "k1_bound_ms_per_step": sum(r["bound_ms"] for r in sites),
+            "k1_index_add_ms_per_step": sum(r["library_ms"] for r in sites), "sites": sites}
+
+
+def run_bench_path(card: str):
+    """Phase 10: a small card-against-CPU step of (b), then (a) JAX's bench
+    configuration and (b) the same with every knob this slice ports."""
+    t0 = time.perf_counter()
+    check_step_cuda_vs_cpu(joint=True, knobs=ALL_SLICE_KNOBS, sdf_query_chunk=512)
+    runs = [run_bench_config("bench (a)", BENCH_KNOBS, 0, card),
+            run_bench_config("bench (b)", ALL_SLICE_KNOBS, SDF_QUERY_CHUNK, card)]
+    log("bench configurations " + json.dumps([{k: v for k, v in r.items() if k != "sites"} for r in runs]))
+    log(f"phase 10 took {time.perf_counter() - t0:.3f} s")
+    return runs
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1129,21 +1312,30 @@ def main() -> int:
     run_reni_prior(card)
     check_reni_cuda_vs_cpu(card)
     log(f"phase 9 took {time.perf_counter() - t9:.3f} s; the script so far {time.perf_counter() - t_start:.3f} s")
-    per_step = lambda key: sum(r[key] * r["launches_per_step"] for r in sites)
+    bench = run_bench_path(card)
+    joint_k1 = {k: sum(r[k] for r in sites) for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    log(f"phase 5's joint step K1 (unfused, float32 mapping): {main_launches} launches in {STEPS} steps, "
+        + json.dumps(joint_k1) + " ms a step")
+    # the kernels line: K1 per step of this slice's main path, (b), on the
+    # inputs one of its steps gave K1 (the fused pass's shapes)
+    main_path = bench[1]
+    sites = main_path["sites"]
+    per_step = lambda key: sum(r[key] * r["launches_per_step"] for r in sites)  # noqa: E731
     kernels = [{
         "name": k1.KERNEL_NAME,
         "route": "cuda",
         "source": "neusky_torch/csrc/hashgrid_scatter.cu",
         "replaces": "neusky_tpu/ops/hashgrid_pallas.py:47",
-        "launches": main_launches,
+        "launches": main_path["k1_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in sites),
-        # times are per joint training step: the sum over its launches, on
-        # the inputs one main-path step gave them
+        # times are per (b) training step: the sum over its launches, on the
+        # inputs one step gave them
         "ms": per_step("ms"),
         "plain_ms": per_step("plain_ms"),
         "bound_ms": per_step("bound_ms"),
         "bound_by": max(sites, key=lambda r: r["bound_ms"] * r["launches_per_step"])["bound_by"],
         "library_ms": per_step("library_ms"),
+        "shapes": [[r["L"], r["M"]] for r in sites],
     }]
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi_line())

@@ -1,8 +1,10 @@
-"""DataManager (mirror of ``neusky_tpu/data/datamanager.py``, numpy
-sampler): owns the train split and an optional eval split, emits per-step
-training batches as tensors on its device, full-image eval bundles, and the
-region batches of test-time latent fitting.  The C++ prefetch sampler is
-not ported yet."""
+"""DataManager (mirror of ``neusky_tpu/data/datamanager.py``): owns the
+train split and an optional eval split, emits per-step training batches as
+tensors on its device, full-image eval bundles, and the region batches of
+test-time latent fitting.  Training batches come from the numpy
+``PixelSampler`` or, with ``use_native_sampler``, from the C++ sampler and
+its prefetch thread (``data/native_sampler.py``), which raises where it
+cannot be built."""
 
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 
 from neusky_torch.core.cameras import Cameras
 from neusky_torch.core.rays import RayBundle
+from neusky_torch.data.native_sampler import NativeBatchSampler
 from neusky_torch.data.pixel_sampler import PixelSampler, PixelSamplerConfig
 from neusky_torch.device import resolve_device
 
@@ -23,6 +26,10 @@ class DataManagerConfig:
     pixel_sampler: PixelSamplerConfig = PixelSamplerConfig()
     num_sky_rays: int = 256
     seed: int = 0
+    use_native_sampler: bool = False
+    """Draw training batches and sky rays from the C++ sampler, whose thread
+    prefetches ``native_queue_depth`` batches while the step runs."""
+    native_queue_depth: int = 4
 
 
 def batch_to_device(batch: Dict, cameras: Cameras, device) -> Dict:
@@ -54,6 +61,9 @@ class DataManager:
         self.eval_cameras = eval_cameras.to(self.device) if eval_cameras is not None else None
         self.train_images, self.train_masks = train_images, train_masks
         self.eval_images, self.eval_masks = eval_images, eval_masks
+        self._native: Optional[NativeBatchSampler] = None
+        if config.use_native_sampler:
+            self._start_native(config.seed)
 
     @property
     def num_train(self) -> int:
@@ -63,19 +73,57 @@ class DataManager:
     def num_eval(self) -> int:
         return self.eval_sampler.num_images if self.eval_sampler else 0
 
+    def _start_native(self, seed: int) -> None:
+        ps = self.config.pixel_sampler
+        if self._native is not None:
+            self._native.close()
+        self._native = NativeBatchSampler(self.train_images, self.train_masks, seed=seed)
+        self._native_u = min(ps.images_per_batch, self.num_train)
+        self._native.start_prefetch(self._native_u, ps.rays_per_image, self.config.native_queue_depth)
+
     def reseed(self, step: int) -> None:
         """Move the training batch stream to a resume step: the stream of
         ``np.random.default_rng((seed, step))``, so a resumed run neither
-        replays the stream from its start nor depends on how it got there."""
+        replays the stream from its start nor depends on how it got there.
+        The native sampler is rebuilt from a 32-bit seed folded from
+        (seed, step), as in JAX."""
         self.train_sampler.rng = np.random.default_rng((self.config.seed, step))
+        if self._native is not None:
+            self._start_native(int(np.random.SeedSequence([self.config.seed, step]).generate_state(1)[0]))
 
     def next_train(self, step: int = 0) -> Dict:
         """Scene batch + sky-ray pixels, on the device."""
-        batch = self.train_sampler.sample_batch()
-        sky = self.train_sampler.sample_sky_rays(self.config.num_sky_rays)
+        if self._native is not None:
+            batch, sky = self._native_batch(), self._native_sky()
+        else:
+            batch = self.train_sampler.sample_batch()
+            sky = self.train_sampler.sample_sky_rays(self.config.num_sky_rays)
         if sky is not None:
             batch["sky_cam_idx"], batch["sky_pixel_coords"] = sky
         return batch_to_device(batch, self.train_cameras, self.device)
+
+    def _native_pixel_coords(self, pixels: np.ndarray) -> np.ndarray:
+        w = self._native.width
+        return np.stack([(pixels // w).astype(np.float32) + 0.5, (pixels % w).astype(np.float32) + 0.5], axis=-1)
+
+    def _native_batch(self) -> Dict:
+        """The next prefetched native batch in the numpy sampler's layout."""
+        u, r = self._native_u, self.config.pixel_sampler.rays_per_image
+        rows, pixels, rgb, mask = self._native.next_batch()
+        return {
+            "image_indices": rows.astype(np.int32),
+            "ray_image_idx": np.repeat(np.arange(u, dtype=np.int32), r),
+            "cam_idx": np.repeat(rows, r).astype(np.int32),
+            "pixel_coords": self._native_pixel_coords(pixels),
+            "image": rgb,
+            "mask": mask,
+        }
+
+    def _native_sky(self):
+        if not self._native.has_sky:
+            return None
+        rows, pixels = self._native.sample_sky(self.config.num_sky_rays)
+        return rows.astype(np.int32), self._native_pixel_coords(pixels)
 
     def _eval_split(self):
         if self.eval_cameras is not None:

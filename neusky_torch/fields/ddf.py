@@ -15,9 +15,13 @@ A ``hash`` encoding goes through the all-level exact encode
 It computes what the JAX package's plain encode does (exact forward,
 exact table gradient, true position cotangent).
 
-Not ported yet: ``Attention`` conditioning, the ``sh`` encoding,
-``use_bf16_mapping`` and ``film_per_layer_heads``; they raise
-``NotImplementedError``.
+FiLM precision and layout (``nets/siren.py``): ``use_bf16_compute`` runs
+the FiLM layers' products in bf16, ``use_bf16_mapping`` the mapping
+network's products and its (frequencies, phases) outputs, and
+``film_per_layer_heads`` gives each FiLM layer its own mapping head.
+
+Not ported yet: ``Attention`` conditioning and the ``sh`` encoding; they
+raise ``NotImplementedError``.
 
 Parameters (flax tree): ``{"net": {...}, "pos_hash_table": [L, F, T],
 "dir_hash_table": [L, F, T]}``, the tables present with their encodings.
@@ -76,8 +80,6 @@ class DirectionalDistanceField:
         for enc in (c.position_encoding_type, c.direction_encoding_type):
             if enc not in ("hash", "nerf", "none"):
                 raise NotImplementedError(f"DDF encoding {enc!r} is not ported yet")
-        if c.use_bf16_mapping or c.film_per_layer_heads:
-            raise NotImplementedError("use_bf16_mapping and film_per_layer_heads are not ported yet")
         self.config = config
         self.ddf_radius = ddf_radius
         self.pos_hash = HashGridEncoding(c.hash) if c.position_encoding_type == "hash" else None
@@ -91,7 +93,8 @@ class DirectionalDistanceField:
                              first_omega_0=c.first_omega_0, hidden_omega_0=c.hidden_omega_0)
         else:
             self.net = FiLMSiren(c.hidden_layers, c.hidden_features, c.mapping_layers, c.mapping_features,
-                                 out_features, bf16=c.use_bf16_compute)
+                                 out_features, bf16=c.use_bf16_compute, mapping_bf16=c.use_bf16_mapping,
+                                 per_layer_heads=c.film_per_layer_heads)
 
     def _enc_dim(self, kind: str) -> int:
         if kind == "hash":

@@ -14,6 +14,11 @@ softplus_beta's slope).  The eikonal loss then back-propagates through
 ordinary first-order autograd; no forward-mode AD ever passes through a
 custom Function.
 
+``use_bf16_compute`` (JAX ``WNDense.compute_dtype``) makes every geometry
+and colour product a bf16 product.  The tangents are then rounded to
+bfloat16 where JAX's ``jax.linearize`` of the bf16 MLP rounds them: at each
+layer's product, with the kernel (whose tangent is zero) rounded too.
+
 Parameters (flax tree): ``{"params": {"hash_table", "geo_{l}": {kernel,
 bias, scale}, "col_{l}": {...}, "variance": [1]}}``.
 """
@@ -27,6 +32,7 @@ import torch
 
 from neusky_torch.core.rays import RaySamples
 from neusky_torch.core.scene import contraction_to_unit_cube
+from neusky_torch.nets.bf16 import matmul
 from neusky_torch.nets.density import neus_alpha
 from neusky_torch.nets.mlp import (
     dense_kernel,
@@ -66,9 +72,8 @@ class SDFAlbedoFieldConfig:
 
 class SDFAlbedoField:
     def __init__(self, config: SDFAlbedoFieldConfig):
-        if config.use_bf16_compute:
-            raise NotImplementedError("bf16 MLP compute is not ported yet")
         self.config = config
+        self.bf16 = config.use_bf16_compute
         self.encoding = HashGridEncoding(config.hash)
         c = config
         self.pe_dim = nerf_encoding_dim(3, c.position_encoding_freqs) if c.use_position_encoding else 0
@@ -125,7 +130,7 @@ class SDFAlbedoField:
     def _geo_mlp(self, p, h: torch.Tensor) -> torch.Tensor:
         layers = self._geo_layers(p)
         for i, lp in enumerate(layers):
-            h = wn_dense(lp, h, self.config.weight_norm)
+            h = wn_dense(lp, h, self.config.weight_norm, self.bf16)
             if i < len(layers) - 1:
                 h = softplus_beta(h, 100.0)
         return h
@@ -136,8 +141,8 @@ class SDFAlbedoField:
         layers = self._geo_layers(p)
         for i, lp in enumerate(layers):
             k = dense_kernel(lp, self.config.weight_norm)
-            h = h @ k + lp["bias"]
-            th = th @ k
+            h = matmul(h, k, self.bf16) + lp["bias"]
+            th = matmul(th, k, self.bf16)
             if i < len(layers) - 1:
                 h, slope = softplus_beta_with_slope(h, 100.0)
                 th = th * slope
@@ -168,7 +173,7 @@ class SDFAlbedoField:
         h = torch.cat(feats, dim=-1)
         n = len(self.col_dims) - 1
         for l in range(n):
-            h = wn_dense(p[f"col_{l}"], h, c.weight_norm)
+            h = wn_dense(p[f"col_{l}"], h, c.weight_norm, self.bf16)
             if l < n - 1:
                 h = torch.relu(h)
         return torch.sigmoid(h)

@@ -11,9 +11,11 @@ subset of the DDF's termination points, Lambertian shading and the scene
 losses.  ``generate_ddf_ground_truth`` renders the DDF's supervision from
 the SDF.
 
-Not ported yet: ``forward_with_ddf_gt`` (the fused scene and ground-truth
-pass), the GT-illumination probe and Blinn-Phong shading; a config that
-asks for them raises ``NotImplementedError``.
+``forward_with_ddf_gt`` (``fused_ddf_gt_pass``) runs the scene rays and the
+DDF's ground-truth rays through one proposal and field pass.
+
+Not ported yet: the GT-illumination probe and Blinn-Phong shading; a config
+that asks for them raises ``NotImplementedError``.
 
 Randomness: ``forward`` takes ``draws``, a dict of explicit random draws
 (see :meth:`NeuSkyModel.draw`); any draw it lacks comes from ``generator``.
@@ -30,17 +32,20 @@ The keys and their JAX sources (``jax.random`` calls under the key tree of
   ``grid_salt``: the hash-grid density prior's perturbed grid.
 
 ``generate_ddf_ground_truth`` takes ``proposal_stoch_u`` and ``sdf_salt``
-of its own (:meth:`NeuSkyModel.draw_ddf_gt`).
+of its own (:meth:`NeuSkyModel.draw_ddf_gt`).  ``forward_with_ddf_gt``
+takes the draws of one ``forward`` over the scene and ground-truth rays
+together (JAX's key tree of ``forward_with_ddf_gt``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from neusky_torch.core.colour import linear_to_sRGB
 from neusky_torch.core.rays import (
@@ -167,19 +172,39 @@ def top_k_indices(values: torch.Tensor, k: int) -> torch.Tensor:
     return torch.sort(values, descending=True, stable=True).indices[:k]
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """JAX's ``dots_with_no_batch_dims_saveable``: keep the output of every
+    matrix product without a batch dimension (``mm``, ``addmm``, any
+    overload: the bf16 product is ``mm.dtype``) for the backward, recompute
+    the rest."""
+    if getattr(op, "overloadpacket", None) in (torch.ops.aten.mm, torch.ops.aten.addmm):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _chunked_apply(fn, args: Tuple[torch.Tensor, ...], chunk: int, remat_policy: str = "full"):
     """``fn`` over the leading axis in chunks of ``chunk`` rows, each chunk
-    under ``torch.utils.checkpoint`` when autograd records (its activations
-    are recomputed in the backward): bounds the peak memory of the N·D
-    visibility queries.  Exact,
-    since ``fn`` is row-wise and the chunks' results are concatenated.
-    ``fn`` returns a dict of tensors."""
-    if remat_policy != "full":
-        raise NotImplementedError(f"visibility_remat_policy {remat_policy!r} is not ported yet")
+    under ``torch.utils.checkpoint`` when autograd records: bounds the peak
+    memory of the N·D visibility queries.  ``remat_policy="full"``
+    recomputes a chunk's activations in the backward; ``"dots"`` keeps its
+    matrix products' outputs and recomputes the rest (more memory, fewer
+    products).  Exact, since ``fn`` is row-wise and the chunks' results are
+    concatenated.  ``fn`` returns a dict of tensors."""
+    if remat_policy not in ("full", "dots"):
+        raise ValueError(f"visibility_remat_policy {remat_policy!r}: 'full' or 'dots'")
     m = args[0].shape[0]
-    run = (lambda *a: checkpoint(fn, *a, use_reentrant=False)) if torch.is_grad_enabled() else fn
+    run = fn
+    if torch.is_grad_enabled():
+        kw = {} if remat_policy == "full" else {
+            "context_fn": functools.partial(create_selective_checkpoint_contexts, _save_dots)}
+        run = lambda *a: checkpoint(fn, *a, use_reentrant=False, **kw)  # noqa: E731
     outs = [run(*(a[s:s + chunk] for a in args)) for s in range(0, m, chunk)]
     return {k: torch.cat([o[k] for o in outs], dim=0) for k in outs[0]}
+
+
+def _rows(rays, rows: slice):
+    """The rays ``rows`` of a RayBundle or a RaySamples."""
+    return type(rays)(**{f.name: getattr(rays, f.name)[rows] for f in dataclasses.fields(rays)})
 
 
 class NeuSkyModel:
@@ -187,8 +212,6 @@ class NeuSkyModel:
     (default CUDA; raises without a card unless ``device="cpu"``)."""
 
     def __init__(self, config: NeuSkyModelConfig, device="cuda"):
-        if config.sdf_query_chunk:
-            raise NotImplementedError("a chunked level-set SDF query (sdf_query_chunk > 0) is not ported yet")
         if config.gt_illumination_probe or config.sdf_field.predict_shininess:
             raise NotImplementedError("the GT-illumination probe and Blinn-Phong shading are not ported yet")
         self.config = config
@@ -436,7 +459,11 @@ class NeuSkyModel:
             if sub and sub < d:
                 stride = d // sub
                 term_points = term_points.reshape(n, d, 3)[:, ::stride, :][:, :sub, :].reshape(-1, 3)
-            result["sdf_at_termination"] = self.field.sdf_only(field_params, term_points, stoch_salt)
+            query = lambda p: {"sdf": self.field.sdf_only(field_params, p, stoch_salt)}  # noqa: E731
+            if c.sdf_query_chunk:
+                result["sdf_at_termination"] = _chunked_apply(query, (term_points,), c.sdf_query_chunk)["sdf"]
+            else:
+                result["sdf_at_termination"] = query(term_points)["sdf"]
         return result
 
     def _visibility_threshold(self, params, step: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -497,12 +524,58 @@ class NeuSkyModel:
         fitted (``fitting_eval_latents``); ``rotation`` rotates it (see
         :meth:`sample_illumination`).  Eval mode draws nothing and skips the
         level-set SDF query, which only a training loss reads."""
-        c = self.config
-        if train:
-            draws = self.draw(draws, generator, ray_bundle.num_rays)
-        else:
-            draws = {}
+        draws = self.draw(draws, generator, ray_bundle.num_rays) if train else {}
         rb = self.apply_collider(ray_bundle)
+        rs, weights_list, samples_list, field_out, weights, trans = self._field_pass(
+            params, rb, step, train, draws, generator)
+        return self._compose_outputs(
+            params, rb, rs, field_out, weights, trans, weights_list, samples_list, image_indices,
+            ray_image_idx, step, train, draws, generator, fitting_eval_latents, rotation,
+        )
+
+    def forward_with_ddf_gt(
+        self,
+        params,
+        ray_bundle: RayBundle,
+        image_indices: torch.Tensor,
+        ray_image_idx: torch.Tensor,
+        gt_ray_bundle: RayBundle,
+        step: float = 0.0,
+        train: bool = True,
+        draws: Optional[dict] = None,
+        generator: Optional[torch.Generator] = None,
+        gt_mask_threshold: float = 0.0,
+    ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
+        """The scene forward and the DDF's ground truth from ONE proposal
+        and field pass over the scene rays and ``gt_ray_bundle``
+        concatenated (JAX ``forward_with_ddf_gt``): the scene outputs,
+        interlevel inputs included, come from the head slice, the ground
+        truth (``generate_ddf_ground_truth``'s keys) from the tail.  The
+        ground-truth rays go through the sampler as the scene rays do (in
+        training: jittered, annealed, with the stochastic table gradients);
+        in one pass the hash-grid encodes run, and K1 launches, once for
+        both.  ``draws`` are those of one ``forward`` over all the rays."""
+        n = ray_bundle.num_rays
+        rb_s, rb_g = self.apply_collider(ray_bundle), self.apply_collider(gt_ray_bundle)
+        rb = RayBundle(**{f.name: torch.cat([getattr(rb_s, f.name), getattr(rb_g, f.name)], dim=0)
+                          for f in dataclasses.fields(RayBundle)})
+        draws = self.draw(draws, generator, rb.num_rays) if train else {}
+        rs, weights_list, samples_list, field_out, weights, trans = self._field_pass(
+            params, rb, step, train, draws, generator)
+        head, tail = slice(0, n), slice(n, None)
+        outputs = self._compose_outputs(
+            params, _rows(rb, head), _rows(rs, head), {k: v[head] for k, v in field_out.items()},
+            weights[head], trans[head], [w[head] for w in weights_list], [_rows(r, head) for r in samples_list],
+            image_indices, ray_image_idx, step, train, draws, generator, False, None,
+        )
+        return outputs, self._ground_truth(weights[tail], _rows(rs, tail), field_out["normal"][tail],
+                                           gt_mask_threshold)
+
+    def _field_pass(self, params, rb: RayBundle, step, train: bool, draws: dict, generator):
+        """Proposal sampling and the SDF field over ``rb`` → (ray samples,
+        proposal weights and samples, field outputs, weights,
+        transmittance)."""
+        c = self.config
         rs, weights_list, samples_list = proposal_sample(
             rb, self.density_fns(params, draws.get("proposal_stoch_u")),
             c.proposal, train=train, step=step, jitters=draws.get("proposal_jitters"),
@@ -512,7 +585,14 @@ class NeuSkyModel:
             params["fields"], rs, True, c.cos_anneal_ratio, self._field_salt(draws.get("sdf_salt")),
         )
         weights, trans = weights_and_transmittance_from_alphas(field_out["alpha"])
+        return rs, weights_list, samples_list, field_out, weights, trans
 
+    def _compose_outputs(self, params, rb, rs, field_out, weights, trans, weights_list, samples_list,
+                         image_indices, ray_image_idx, step, train, draws, generator, fitting_eval_latents,
+                         rotation) -> Dict[str, Any]:
+        """Everything after the field pass (JAX ``_compose_outputs``): the
+        sky, visibility, shading, renders and the density-grid samples."""
+        c = self.config
         bg_transmittance = trans[:, -1, :]
         weights_list = weights_list + [weights]
         samples_list = samples_list + [rs]
@@ -575,11 +655,13 @@ class NeuSkyModel:
         stop_gradients: bool = False,
         draws: Optional[dict] = None,
         generator: Optional[torch.Generator] = None,
+        step: Optional[float] = None,
     ) -> Dict[str, torch.Tensor]:
         """The DDF's supervision rendered from the scene SDF: accumulation,
         hit mask, termination distance (clamped to the sphere's diameter) and
         normals.  The sampler runs in eval mode (no jitter) with the proposal
-        PDF un-annealed, as JAX's DDF-fit call (``step=None``) does.  With
+        PDF un-annealed, as JAX's DDF-fit call (``step=None``) does; a
+        ``step`` anneals it as the scene pass's.  With
         ``stop_gradients=False`` (canonical) the DDF losses reach the SDF
         field through it, by the stochastic table gradient of ``draws``
         (:meth:`draw_ddf_gt`); the proposal encodes feed only the
@@ -589,19 +671,22 @@ class NeuSkyModel:
             d = {} if stop_gradients else self.draw_ddf_gt(draws, generator, ray_bundle.num_rays)
             rb = self.apply_collider(ray_bundle)
             rs, _, _ = proposal_sample(
-                rb, self.density_fns(params, d.get("proposal_stoch_u")), c.proposal, train=False, step=None,
+                rb, self.density_fns(params, d.get("proposal_stoch_u")), c.proposal, train=False, step=step,
             )
             field_out = self.field.field_outputs(
                 params["fields"], rs, True, c.cos_anneal_ratio, self._field_salt(d.get("sdf_salt")),
             )
             weights, _ = weights_and_transmittance_from_alphas(field_out["alpha"])
-            accum = render_accumulation(weights)
-            return {
-                "accumulations": accum,
-                "mask": (accum > mask_threshold).to(accum.dtype),
-                "termination_dist": torch.clamp(render_depth(weights, rs), max=2.0 * c.ddf_radius),
-                "normals": render_normal(weights, field_out["normal"]),
-            }
+            return self._ground_truth(weights, rs, field_out["normal"], mask_threshold)
+
+    def _ground_truth(self, weights, rs, normals, mask_threshold: float) -> Dict[str, torch.Tensor]:
+        accum = render_accumulation(weights)
+        return {
+            "accumulations": accum,
+            "mask": (accum > mask_threshold).to(accum.dtype),
+            "termination_dist": torch.clamp(render_depth(weights, rs), max=2.0 * self.config.ddf_radius),
+            "normals": render_normal(weights, normals),
+        }
 
     # ------------------------------------------------------------------
 

@@ -10,9 +10,13 @@ Randomness: ``draws`` holds the scene forward's draws
 (:meth:`NeuSkyModel.draw`) and, under ``"ddf"``, the DDF half's
 (:func:`draw_ddf_fit`); whatever is missing comes from ``generator``.
 
-``eval_latent_loss_fn`` is the loss of the test-time eval-latent fit.
+With ``fused_ddf_gt_pass`` (and the SDF gradients not stopped) the scene
+forward and the ground-truth render are one proposal and field pass over
+the scene and vMF rays (:meth:`NeuSkyModel.forward_with_ddf_gt`); its
+draws are then those of one ``forward`` over both, and the DDF half draws
+only the vMF rays and the multi-view points.
 
-Not ported yet: ``fused_ddf_gt_pass`` (``forward_with_ddf_gt``).
+``eval_latent_loss_fn`` is the loss of the test-time eval-latent fit.
 """
 
 from __future__ import annotations
@@ -89,19 +93,21 @@ def scene_loss_fn(
 
 def draw_ddf_fit(
     model: NeuSkyModel, pipeline_config: PipelineConfig, draws: Optional[dict],
-    generator: Optional[torch.Generator],
+    generator: Optional[torch.Generator], with_gt: bool = True,
 ) -> dict:
     """Complete the DDF half's draws (the JAX key tree ``split(k_ddf, 3)``
     = (k_vis_sample, k_vis_gt, k_ddf)): ``vmf`` (the vMF rays,
     :func:`draw_vmf`), ``gt`` (the ground-truth pass's stochastic table
-    gradients, :meth:`NeuSkyModel.draw_ddf_gt`) and ``multi_view_u`` (the
-    multi-view loss's sphere points)."""
+    gradients, :meth:`NeuSkyModel.draw_ddf_gt`; not with ``with_gt=False``,
+    the fused pass) and ``multi_view_u`` (the multi-view loss's sphere
+    points)."""
     s = pipeline_config.visibility_train_sampler
     n = s.num_samples_on_sphere * s.num_rays_per_sample
     d = dict(draws or {})
     if "vmf" not in d:
         d["vmf"] = draw_vmf(s, generator, model.device)
-    d["gt"] = model.draw_ddf_gt(d.get("gt"), generator, n)
+    if with_gt:
+        d["gt"] = model.draw_ddf_gt(d.get("gt"), generator, n)
     if "multi_view_u" not in d:
         d["multi_view_u"] = draw_sphere_uniforms(n, generator, model.device)
     return d
@@ -114,17 +120,22 @@ def ddf_fit_loss_fn(
     batch: Dict[str, Any],
     draws: Optional[dict] = None,
     generator: Optional[torch.Generator] = None,
+    vis_bundle: Optional[RayBundle] = None,
+    gt: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """DDF-fit half: vMF sphere rays rendered against the SDF as ground
     truth (un-annealed, no jitter), then the DDF losses and the DDF depth
-    PSNR."""
-    d = draw_ddf_fit(model, pipeline_config, draws, generator)
+    PSNR.  ``vis_bundle`` and ``gt`` from the fused pass skip the draw of
+    the rays and the separate render."""
+    d = draw_ddf_fit(model, pipeline_config, draws, generator, with_gt=gt is None)
     r = model.config.ddf_radius
-    vis_bundle = vmf_ddf_samples(pipeline_config.visibility_train_sampler, d["vmf"], ddf_sphere_radius=r)
-    gt = model.generate_ddf_ground_truth(
-        params, vis_bundle, mask_threshold=pipeline_config.visibility_accumulation_mask_threshold,
-        stop_gradients=pipeline_config.stop_sdf_gradients, draws=d["gt"],
-    )
+    if vis_bundle is None:
+        vis_bundle = vmf_ddf_samples(pipeline_config.visibility_train_sampler, d["vmf"], ddf_sphere_radius=r)
+    if gt is None:
+        gt = model.generate_ddf_ground_truth(
+            params, vis_bundle, mask_threshold=pipeline_config.visibility_accumulation_mask_threshold,
+            stop_gradients=pipeline_config.stop_sdf_gradients, draws=d["gt"],
+        )
     ddf_batch = dict(gt)
     sky_bundle = batch_sky_bundle(batch)
     if sky_bundle is not None:
@@ -158,13 +169,25 @@ def train_loss_fn(
     plus the DDF-fit half when ``fit_visibility_field`` and the model has a
     DDF."""
     fit_ddf = model.config.fit_visibility_field and model.ddf is not None
-    if fit_ddf and model.config.fused_ddf_gt_pass and not pipeline_config.stop_sdf_gradients:
-        raise NotImplementedError("fused_ddf_gt_pass (forward_with_ddf_gt) is not ported yet")
     draws = dict(draws or {})
     ddf_draws = draws.pop("ddf", None)
-    total, aux = scene_loss_fn(model, params, batch, step, draws, generator)
+    if fit_ddf and model.config.fused_ddf_gt_pass and not pipeline_config.stop_sdf_gradients:
+        d = draw_ddf_fit(model, pipeline_config, ddf_draws, generator, with_gt=False)
+        vis_bundle = vmf_ddf_samples(pipeline_config.visibility_train_sampler, d["vmf"],
+                                     ddf_sphere_radius=model.config.ddf_radius)
+        outputs, gt = model.forward_with_ddf_gt(
+            params, batch_ray_bundle(batch), batch["image_indices"], batch["ray_image_idx"], vis_bundle,
+            step=step, train=True, draws=draws, generator=generator,
+            gt_mask_threshold=pipeline_config.visibility_accumulation_mask_threshold,
+        )
+        total, aux = _scene_losses(model, params, outputs, batch)
+        ddf_total, ddf_aux = ddf_fit_loss_fn(model, pipeline_config, params, batch, d, generator,
+                                             vis_bundle=vis_bundle, gt=gt)
+    else:
+        total, aux = scene_loss_fn(model, params, batch, step, draws, generator)
+        if fit_ddf:
+            ddf_total, ddf_aux = ddf_fit_loss_fn(model, pipeline_config, params, batch, ddf_draws, generator)
     if fit_ddf:
-        ddf_total, ddf_aux = ddf_fit_loss_fn(model, pipeline_config, params, batch, ddf_draws, generator)
         total = total + ddf_total
         aux = {
             "loss_dict": {**aux["loss_dict"], **ddf_aux["loss_dict"]},

@@ -4,6 +4,7 @@ Layers are plain functions of a parameter dict keyed like the flax tree:
 ``{"kernel": [in, out], "bias": [out]}`` plus ``"scale": [out]`` for
 weight-normalised layers, whose effective kernel is
 ``scale · kernel / ‖kernel‖`` with the norm over the input axis (axis 0).
+``bf16`` runs a layer's product in bf16 (``nets/bf16.py``).
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from neusky_torch.nets.bf16 import matmul
 
 Params = Dict[str, torch.Tensor]
 
@@ -44,9 +47,10 @@ def dense_kernel(p: Params, weight_norm: bool) -> torch.Tensor:
     return p["scale"] * v / (torch.linalg.norm(v, dim=0, keepdim=True) + 1e-12)
 
 
-def wn_dense(p: Params, x: torch.Tensor, weight_norm: bool = False) -> torch.Tensor:
-    """``WNDense``: x [..., in] → [..., out]."""
-    return x @ dense_kernel(p, weight_norm) + p["bias"]
+def wn_dense(p: Params, x: torch.Tensor, weight_norm: bool = False, bf16: bool = False) -> torch.Tensor:
+    """``WNDense``: x [..., in] → [..., out]; with ``bf16`` its product is
+    a bf16 product of the input and the (weight-normalised) kernel."""
+    return matmul(x, dense_kernel(p, weight_norm), bf16) + p["bias"]
 
 
 def dense(p: Params, x: torch.Tensor) -> torch.Tensor:

@@ -17,13 +17,17 @@ SIREN first layer U(±1/in), hidden U(±√(6/in)/ω); FiLM hidden and output
 layers U(±√(6/in)/25); mapping kernels Kaiming-normal for LeakyReLU(0.2),
 the output kernel scaled by 0.25; biases U(±1/√in).
 
-``bf16=True`` on a FiLM-SIREN rounds the FiLM layers' matmul inputs to
-bfloat16 and runs the product in float32 (JAX ``use_bf16_compute``:
-``dot(x.astype(bf16), w.astype(bf16), preferred_element_type=float32)``).
-Every product of two bfloat16 values is exact in float32, so this is the
-same function up to the order of the sums.  The parameters, the
-accumulation, the affine of the frequencies, the sine and the output layer
-stay float32.
+``bf16=True`` on a FiLM-SIREN runs the FiLM layers' products in bf16 (JAX
+``compute_dtype``: ``dot(x.astype(bf16), w.astype(bf16),
+preferred_element_type=float32)``, :func:`~neusky_torch.nets.bf16.bf16_matmul`).
+The parameters, the accumulation, the affine of the frequencies, the sine
+and the output layer stay float32.  ``mapping_bf16=True`` (JAX
+``mapping_compute_dtype``) runs the mapping network's products in bf16 too
+and rounds its (frequencies, phases) outputs to bfloat16; the FiLM layer
+upcasts them to float32 before ``15·f + 30`` and the sine.
+``per_layer_heads=True`` (JAX ``per_layer_mapping_heads``) has the mapping
+network emit one (frequency, phase) pair per FiLM layer from its own column
+block of ``kernel_out``: the same function, with no [N, 2·layers·H] tensor.
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ import math
 from typing import Dict
 
 import torch
+
+from neusky_torch.nets.bf16 import matmul
 
 Params = Dict[str, torch.Tensor]
 
@@ -104,13 +110,16 @@ class MappingNetwork:
     ``[..., out_dim / 2]``.  With ``head_block`` (= the consuming SIREN's
     width H) it returns one (frequency, phase) pair per FiLM layer instead,
     each from its own column block of ``kernel_out``: the same numbers, with
-    no [N, out_dim] tensor."""
+    no [N, out_dim] tensor.  With ``bf16`` every product is a bf16 product
+    and the outputs are bfloat16."""
 
-    def __init__(self, hidden_layers: int, hidden_features: int, out_dim: int, head_block: int = 0):
+    def __init__(self, hidden_layers: int, hidden_features: int, out_dim: int, head_block: int = 0,
+                 bf16: bool = False):
         self.hidden_layers = hidden_layers
         self.hidden_features = hidden_features
         self.out_dim = out_dim
         self.head_block = head_block
+        self.bf16 = bf16
 
     def init(self, in_dim: int, generator, device) -> Params:
         p = {}
@@ -122,19 +131,26 @@ class MappingNetwork:
         p["bias_out"] = _bias_init(in_dim, self.out_dim, generator, device)
         return p
 
+    def _dense(self, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return matmul(x, w, self.bf16) + b
+
+    def _out(self, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        y = self._dense(x, w, b)
+        return y.bfloat16() if self.bf16 else y
+
     def __call__(self, p: Params, z: torch.Tensor):
         x = z
         for i in range(self.hidden_layers):
-            x = torch.nn.functional.leaky_relu(x @ p[f"kernel_{i}"] + p[f"bias_{i}"], 0.2)
+            x = torch.nn.functional.leaky_relu(self._dense(x, p[f"kernel_{i}"], p[f"bias_{i}"]), 0.2)
         w, b = p["kernel_out"], p["bias_out"]
         if self.head_block:
             h, half = self.head_block, self.out_dim // 2
             return [
-                (x @ w[:, i * h:(i + 1) * h] + b[i * h:(i + 1) * h],
-                 x @ w[:, half + i * h:half + (i + 1) * h] + b[half + i * h:half + (i + 1) * h])
+                (self._out(x, w[:, i * h:(i + 1) * h], b[i * h:(i + 1) * h]),
+                 self._out(x, w[:, half + i * h:half + (i + 1) * h], b[half + i * h:half + (i + 1) * h]))
                 for i in range(half // h)
             ]
-        freqs, phases = torch.chunk(x @ w + b, 2, dim=-1)
+        freqs, phases = torch.chunk(self._out(x, w, b), 2, dim=-1)
         return freqs, phases
 
 
@@ -145,13 +161,16 @@ class FiLMSiren:
     output layer."""
 
     def __init__(self, hidden_layers: int, hidden_features: int, mapping_network_layers: int,
-                 mapping_network_features: int, out_dim: int, bf16: bool = False):
+                 mapping_network_features: int, out_dim: int, bf16: bool = False, mapping_bf16: bool = False,
+                 per_layer_heads: bool = False):
         self.hidden_layers = hidden_layers
         self.hidden_features = hidden_features
         self.out_dim = out_dim
         self.bf16 = bf16
+        self.per_layer_heads = per_layer_heads
         self.mapping = MappingNetwork(mapping_network_layers, mapping_network_features,
-                                      2 * hidden_layers * hidden_features)
+                                      2 * hidden_layers * hidden_features,
+                                      head_block=hidden_features if per_layer_heads else 0, bf16=mapping_bf16)
 
     def init(self, in_dim: int, conditioning_dim: int, generator, device) -> Params:
         h = self.hidden_features
@@ -166,12 +185,15 @@ class FiLMSiren:
         return p
 
     def __call__(self, p: Params, x: torch.Tensor, conditioning: torch.Tensor) -> torch.Tensor:
-        freqs, phases = self.mapping(p["MappingNetwork_0"], conditioning)
+        mapped = self.mapping(p["MappingNetwork_0"], conditioning)
         hf = self.hidden_features
         h = x
         for i in range(self.hidden_layers):
             w, b = p[f"film_kernel_{i}"], p[f"film_bias_{i}"]
-            lin = (h.bfloat16().float() @ w.bfloat16().float() if self.bf16 else h @ w) + b
-            f = freqs[..., i * hf:(i + 1) * hf] * 15.0 + 30.0
-            h = torch.sin(f * lin + phases[..., i * hf:(i + 1) * hf])
+            lin = matmul(h, w, self.bf16) + b
+            if self.per_layer_heads:
+                f, ph = mapped[i]
+            else:
+                f, ph = (m[..., i * hf:(i + 1) * hf] for m in mapped)
+            h = torch.sin((f.float() * 15.0 + 30.0) * lin + ph.float())
         return h @ p["out_kernel"] + p["out_bias"]

@@ -1,5 +1,6 @@
-"""K1 — the hash-grid table-gradient scatter — and the custom-gradient
-lookups of the proposal fields.
+"""K1 — the hash-grid table-gradient scatter — the custom-gradient lookups
+of the proposal fields, and the gathers ``take_rows``, ``take_level_flat``
+and ``take_level`` whose table gradient is K1.
 
 Counterpart of ``neusky_tpu/ops/hashgrid_pallas.py``.  The TPU kernel
 ``_scatter_kernel`` becomes the hand-written CUDA kernel in
@@ -254,3 +255,71 @@ def take_interp_stoch(t2, idx, w, u):
 def take_interp_stoch_fp(t2, idx, w, u):
     """t2 [F, T]; idx, w [8, N]; u [N] → [F, N] (sampled forward)."""
     return _TakeInterpStochFp.apply(t2, idx, w, u)
+
+
+# ---------------------------------------------------------------------------
+# custom-gradient gathers whose backward is K1 (JAX ``take_rows``,
+# ``take_level_flat``, ``take_level``): exact gathers, table gradient by
+# ``scatter_add_tablegrad(_t)``
+
+
+class _TakeRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.table_size = table.shape[0]
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        flat_g = g.reshape(-1, g.shape[-1]).contiguous()
+        return scatter_add_tablegrad(idx.reshape(-1), flat_g, ctx.table_size), None
+
+
+class _TakeLevelFlat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t_flat, idx, table_size):
+        ctx.save_for_backward(idx)
+        ctx.table_size = table_size
+        f = t_flat.shape[0] // table_size
+        return torch.stack([t_flat[idx + fi * table_size] for fi in range(f)], dim=0)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        gf = g.reshape(g.shape[0], -1)
+        return scatter_add_tablegrad_t(idx.reshape(-1), gf, ctx.table_size).reshape(-1), None, None
+
+
+class _TakeLevel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t2, idx):
+        ctx.save_for_backward(idx)
+        ctx.table_size = t2.shape[1]
+        return t2[:, idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        gf = g.reshape(g.shape[0], -1)
+        return scatter_add_tablegrad_t(idx.reshape(-1), gf, ctx.table_size), None
+
+
+def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]``: table [T, 2], idx [...] int32 → [..., 2]; the table
+    gradient is one ``scatter_add_tablegrad`` (K1 on the card)."""
+    return _TakeRows.apply(table, idx)
+
+
+def take_level_flat(t_flat: torch.Tensor, idx: torch.Tensor, table_size: int) -> torch.Tensor:
+    """One level's gather from its flat plane-major view: t_flat [2·T],
+    idx [8, N] int32 → [2, 8, N]; the gradient [2·T] is one
+    ``scatter_add_tablegrad_t``."""
+    return _TakeLevelFlat.apply(t_flat, idx, table_size)
+
+
+def take_level(t2: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """One level's gather: t2 [2, T], idx [8, N] int32 → [2, 8, N]; the
+    gradient [2, T] is one ``scatter_add_tablegrad_t``."""
+    return _TakeLevel.apply(t2, idx)

@@ -180,3 +180,76 @@ def test_k1_all_levels_refuse_what_the_kernel_does_not_take(cuda_device, bad, er
     vals = torch.zeros(bad.get("vals_shape", (4, 2, 100)), device=cuda_device)
     with pytest.raises(err, match=match):
         k1.scatter_levels(rows, vals, bad.get("table_size", 64))
+
+
+# ---------------------------------------------------------------------------
+# the gathers whose backward is K1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["take_rows", "take_level_flat", "take_level"])
+def test_take_ops_gradient_on_card_matches_index_add(cuda_device, op):
+    """``take_rows``, ``take_level_flat`` and ``take_level`` on the card:
+    the forward is the gather, the backward one K1 launch whose table
+    gradient equals ``index_add_`` of the cotangent at the gathered rows
+    (atomics reorder each row's few-term sum: ``ATOL``)."""
+    rng = np.random.default_rng({"take_rows": 0, "take_level_flat": 1, "take_level": 2}[op])
+    t, n = 4096, 3001
+    t2 = torch.from_numpy(rng.normal(size=(2, t)).astype(np.float32)).to(cuda_device)
+    idx = torch.from_numpy(rng.integers(0, t, (8, n)).astype(np.int32)).to(cuda_device)
+    g = torch.from_numpy(rng.normal(size=(2, 8, n)).astype(np.float32)).to(cuda_device)
+    flat_g = g.reshape(2, -1)
+    want = torch.zeros(2, t, device=cuda_device)
+    for f in range(2):
+        want[f].index_add_(0, idx.reshape(-1).long(), flat_g[f])
+    if op == "take_rows":
+        x = t2.t().contiguous().requires_grad_(True)
+        out, cot = k1.take_rows(x, idx), g.permute(1, 2, 0)
+        fwd, want = x.detach()[idx.long()], want.t()
+    elif op == "take_level_flat":
+        x = t2.reshape(-1).clone().requires_grad_(True)
+        out, cot = k1.take_level_flat(x, idx, t), g
+        fwd, want = t2[:, idx.long()], want.reshape(-1)
+    else:
+        x = t2.clone().requires_grad_(True)
+        out, cot = k1.take_level(x, idx), g
+        fwd = t2[:, idx.long()]
+    assert torch.equal(out.detach(), fwd)
+    before = k1.launches[k1.KERNEL_NAME]
+    out.backward(cot)
+    torch.cuda.synchronize()
+    assert k1.launches[k1.KERNEL_NAME] == before + 1
+    torch.testing.assert_close(x.grad, want, atol=ATOL, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 product on the tensor cores (not a kernel of the port: a library
+# GEMM, as XLA's in JAX; held here to the CPU's rounded float32 product)
+
+
+@pytest.mark.cuda
+def test_bf16_matmul_on_card_matches_the_cpu_product(cuda_device):
+    """bf16 × bf16 → float32 on the card against the CPU's float32 product
+    of the same bf16-rounded inputs: values to 1e-5 of their scale (the
+    same exact products, summed in another order).  The input cotangents
+    are bf16-rounded on both sides: each element within 1e-5 of the
+    array's scale (the float32 sums' order) plus one bf16 step of the
+    element (2⁻⁷ of it at most), where the two sums straddle a rounding
+    boundary."""
+    from neusky_torch.nets.bf16 import bf16_matmul
+
+    rng = np.random.default_rng(7)
+    a, b = rng.normal(size=(4096, 256)).astype(np.float32), rng.normal(size=(256, 2560)).astype(np.float32)
+    g = rng.normal(size=(4096, 2560)).astype(np.float32)
+    got, want = [], []
+    for dev, out in ((cuda_device, got), ("cpu", want)):
+        ta = torch.from_numpy(a).to(dev).requires_grad_(True)
+        tb = torch.from_numpy(b).to(dev).requires_grad_(True)
+        y = bf16_matmul(ta, tb)
+        y.backward(torch.from_numpy(g).to(dev))
+        out += [t.detach().cpu() for t in (y, ta.grad, tb.grad)]
+    assert got[0].dtype == torch.float32
+    assert float((got[0] - want[0]).abs().max() / want[0].abs().max()) < 1e-5
+    for x, y in zip(got[1:], want[1:]):
+        assert torch.equal(x, x.bfloat16().float())
+        assert bool(((x - y).abs() <= 2.0**-7 * y.abs() + 1e-5 * y.abs().max()).all())

@@ -123,3 +123,65 @@ def test_launch_levels_refuses_what_the_kernel_does_not_take(bad, err, match):
     vals = torch.zeros(bad.get("vals_shape", (2, 2, 8)))
     with pytest.raises(err, match=match):
         k1._launch_levels(rows, vals, 16)
+
+
+# ---------------------------------------------------------------------------
+# the gathers whose backward is K1: take_rows, take_level_flat, take_level
+
+
+def _take_case(seed: int, t: int = 256, n: int = 64):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(2, t)).astype(np.float32), rng.integers(0, t, (8, n)).astype(np.int32),
+            rng.normal(size=(2, 8, n)).astype(np.float32))
+
+
+@pytest.mark.parametrize("op", ["take_rows", "take_level_flat", "take_level"])
+def test_take_ops_match_jax(op, monkeypatch):
+    """Forward (a gather: equal) and the table gradient of a weighted sum
+    against the JAX custom-VJP op on the CPU (its XLA scatter; float32
+    sums of up to a few duplicates in another order: ``ATOL``); on a CPU
+    tensor the backward takes K1's plain version, one call per backward."""
+    import jax
+
+    from neusky_tpu.ops import hashgrid_pallas as jp
+
+    t2, idx, w = _take_case({"take_rows": 3, "take_level_flat": 4, "take_level": 5}[op])
+    t = t2.shape[1]
+    if op == "take_rows":
+        table, weights = np.ascontiguousarray(t2.T), np.moveaxis(w, 0, -1)  # [T, 2]; [8, N, 2]
+        j_fn, t_fn = jp.take_rows, k1.take_rows
+    elif op == "take_level_flat":
+        table, weights = t2.reshape(-1), w
+        j_fn, t_fn = (lambda x, i: jp.take_level_flat(x, i, t)), (lambda x, i: k1.take_level_flat(x, i, t))
+    else:
+        table, weights = t2, w
+        j_fn, t_fn = jp.take_level, k1.take_level
+    want, grad = jax.value_and_grad(lambda x: jnp.sum(j_fn(x, jnp.asarray(idx)) * jnp.asarray(weights)))(
+        jnp.asarray(table))
+    got_fwd = t_fn(torch.from_numpy(table), torch.from_numpy(idx))
+    np.testing.assert_array_equal(got_fwd.numpy(), np.asarray(j_fn(jnp.asarray(table), jnp.asarray(idx))))
+    calls = []
+    for name in ("scatter_add_tablegrad", "scatter_add_tablegrad_t"):
+        fn = getattr(k1, name)
+        monkeypatch.setattr(k1, name, lambda *a, _fn=fn, _n=name: calls.append(_n) or _fn(*a))
+    x = torch.from_numpy(table).requires_grad_(True)
+    before = k1.launches[k1.KERNEL_NAME]
+    loss = torch.sum(t_fn(x, torch.from_numpy(idx)) * torch.from_numpy(weights))
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(want), rtol=1e-5)
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(grad), atol=ATOL, rtol=0)
+    assert calls == ["scatter_add_tablegrad" if op == "take_rows" else "scatter_add_tablegrad_t"]
+    assert k1.launches[k1.KERNEL_NAME] == before
+
+
+def test_take_level_round_trip_mirrors_the_jax_test():
+    """``tests/test_pallas_scatter.py::test_take_level_roundtrip``: the
+    forward is the plain gather, the gradient the plain scatter."""
+    t2, idx, _ = _take_case(6)
+    x = torch.from_numpy(t2).requires_grad_(True)
+    out = k1.take_level(x, torch.from_numpy(idx))
+    assert out.shape == (2, 8, 64)
+    torch.sum(out**2).backward()
+    ref = torch.from_numpy(t2).requires_grad_(True)
+    torch.sum(ref[:, torch.from_numpy(idx).long()] ** 2).backward()
+    torch.testing.assert_close(x.grad, ref.grad, atol=1e-5, rtol=0)

@@ -175,6 +175,19 @@ def jax_ddf_draws(cfg_j, pcfg_j, rng) -> dict:
     }
 
 
+def jax_fused_draws(cfg_j, pcfg_j, rng, n_scene: int) -> dict:
+    """The draws that ``neusky_tpu`` ``train_loss_fn(rng)`` makes with
+    ``fused_ddf_gt_pass``: ``forward_with_ddf_gt(split(rng)[0])`` is one
+    ``forward`` key tree over the scene and vMF rays together
+    (``jax_scene_draws`` at ``n_scene`` + the vMF rays), and the DDF half
+    draws the vMF rays and the multi-view points from the keys of the
+    unfused path (``jax_ddf_draws`` without the ground-truth pass's)."""
+    s = pcfg_j.visibility_train_sampler
+    draws = jax_scene_draws(cfg_j, rng, n_scene + s.num_samples_on_sphere * s.num_rays_per_sample)
+    draws["ddf"] = {k: v for k, v in jax_ddf_draws(cfg_j, pcfg_j, rng).items() if k != "gt"}
+    return draws
+
+
 def max_rel_err(a, b) -> float:
     """max |a − b| / max(max |b|, tiny) — one scale per array."""
     a = np.asarray(a, np.float64)
