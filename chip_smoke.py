@@ -87,7 +87,25 @@ Phases (any failure exits non-zero; no phase's failure is passed over):
    read after every step (7 a step in (a), 9 in (b)), the peak memory,
    K1 against its plain version and timed on one step's own inputs, one
    profiled step;
-11. one JSON line listing every kernel (K1 per step of (b), on its own
+11. the tools around a trained scene, in one temporary directory, with
+   the methods without ``-tiny`` and the default device:
+   ``neusky_torch/tools/train_sanity.py`` at canonical width with
+   ``NEUSKY_BF16_MAPPING=1`` (24 steps logged every 8, the boundary eval of
+   2 eval images after a 30-step fit, the checkpoint, the sun shadow map)
+   and with ``--gt-illumination`` (4 steps; the probe's table moves), K1's
+   count read after every step's update (7 a step) and around the eval and
+   the shadow map (0); ``eval_from_ckpt`` (30-step fit) and
+   ``render_from_ckpt`` on that checkpoint; the illumination-rotation
+   animation (4 frames of the recipe's 64×64 camera 0), then
+   ``render_animation``'s three commands on a 2-step ``cli train neusky
+   --synthetic-demo`` run; ``render_shadow_probe`` at 64; the viewer
+   (``make_handler(ViewerState(...))`` on 127.0.0.1, port 0): a GET of
+   each render mode and one probe, each PNG decoded; the init-latent fit on
+   the bundled prior; ``trace_context`` around 2 steps.  K1 launches 0
+   times in every one but the training steps.  Then a GT-probe joint step,
+   a Blinn-Phong joint step and a shadow map on the card against the CPU
+   at small size, with phase 3's bounds;
+12. one JSON line listing every kernel (K1 per step of (b), on its own
    inputs, with their shapes), the card line, and the final
    ``{"ok": true, "device": ...}`` line.
 """
@@ -103,8 +121,11 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from http.server import ThreadingHTTPServer
 from pathlib import Path
 
 import numpy as np
@@ -445,7 +466,7 @@ def grad_close(got: torch.Tensor, want: torch.Tensor, rel: float, bf16_cotangent
     return bool(((got - want).abs() <= allow).all())
 
 
-def check_step_cuda_vs_cpu(joint: bool, knobs=None, sdf_query_chunk: int = 0):
+def check_step_cuda_vs_cpu(joint: bool, knobs=None, sdf_query_chunk: int = 0, variant=None):
     """The same params, batch and draws through train_loss_fn on the card
     (K1) and on the CPU (plain scatter), 2 images × 16 rays.  Losses must
     agree to 1e-4 relative and every gradient array to 2e-3 of its largest
@@ -462,8 +483,12 @@ def check_step_cuda_vs_cpu(joint: bool, knobs=None, sdf_query_chunk: int = 0):
     products and cotangents; a flip moves an element by up to 2⁻⁷ of it):
     losses to 1e-3 relative, the SDF field's and the DDF's gradients to
     5e-2 of scale, as the CPU tests against JAX hold the same step
-    (``tests/test_torch_fused.py``)."""
+    (``tests/test_torch_fused.py``).  ``variant`` (a name in
+    :data:`VARIANTS`, phase 11) turns on the GT-illumination probe or
+    Blinn-Phong shading, with phase 3's bounds."""
     cfg, pcfg = small_configs(joint)
+    if variant is not None:
+        cfg = VARIANTS[variant](cfg)
     if knobs is not None:
         with knobs_set(knobs):
             cfg = dataclasses.replace(env_overrides.apply_env_knobs(cfg), sdf_query_chunk=sdf_query_chunk)
@@ -516,7 +541,8 @@ def check_step_cuda_vs_cpu(joint: bool, knobs=None, sdf_query_chunk: int = 0):
         if not grad_close(gg[k], gc[k], grad_rel.get(group, 2e-3), rounds_cotangent(cfg, k)):
             bad.append((k, rel))
     label = ("joint" if joint else "scene") + ("" if knobs is None else " (b) " + json.dumps(knobs)
-                                               + f" sdf_query_chunk {sdf_query_chunk}")
+                                               + f" sdf_query_chunk {sdf_query_chunk}") + (
+        "" if variant is None else f" ({variant})")
     log(f"{label} step on the card vs the CPU: total {tg:.6f} vs {tc:.6f}; K1 launches {expected}; "
         f"worst grad rel err by group " + json.dumps({k: float(f"{v:.3g}") for k, v in worst.items()}))
     check(not bad, f"{label} step on the card differs from the CPU: {bad}")
@@ -1281,6 +1307,283 @@ def run_bench_path(card: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the tools around a trained scene
+
+
+SANITY_STEPS, SANITY_LOG_EVERY = 24, 8
+SANITY_ARGS = [str(SANITY_STEPS), str(SANITY_LOG_EVERY), "--eval-images", "2", "--eval-fit-steps", "30"]
+GT_STEPS = 4
+VARIANTS = {
+    "gt_probe": lambda c: dataclasses.replace(c, gt_illumination_probe=True),
+    "blinn_phong": lambda c: dataclasses.replace(c, sdf_field=dataclasses.replace(c.sdf_field, predict_shininess=True)),
+}
+PRIOR_INIT_ARGS = ["--num-skies", "8", "--width", "64", "--steps", "100"]
+
+
+def counted(fn):
+    """(fn(), seconds, K1 launches) with K1's count zeroed before and the
+    card idle before and after."""
+    torch.cuda.synchronize()
+    k1.launches[k1.KERNEL_NAME] = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, k1_launches()
+
+
+def run_sanity_counted(argv, label: str):
+    """``train_sanity`` (its ``build_run`` and ``run_sanity``, stdout kept)
+    with K1's count and the host clock read after every step's update and
+    around the boundary eval and the shadow map → (the run, the JSON lines
+    it printed, per-step launches, per-step seconds, launches in the eval
+    and the shadow map, peak device GiB, wall seconds)."""
+    from neusky_torch.tools import train_sanity
+
+    steps, stamps, phases = [], [], {}
+    wrapped = {name: getattr(train_sanity, name) for name in ("boundary_eval", "shadow_map")}
+
+    def on_step(i, aux):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        steps.append(k1_launches())
+
+    def around(name):
+        def run(*a, **kw):
+            before = k1_launches()
+            out = wrapped[name](*a, **kw)
+            torch.cuda.synchronize()
+            phases[name] = phases.get(name, 0) + k1_launches() - before
+            return out
+        return run
+
+    for name in wrapped:
+        setattr(train_sanity, name, around(name))
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            run = train_sanity.build_run(train_sanity.parse_args(argv))
+            k1.launches[k1.KERNEL_NAME] = 0
+            t_train = time.perf_counter()
+            rc = train_sanity.run_sanity(run, on_step=on_step)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for name, fn in wrapped.items():
+            setattr(train_sanity, name, fn)
+    check(rc == 0, f"{label}: exit code {rc}")
+    per_step = [n - (steps[i - 1] if i else 0) for i, n in enumerate(steps)]
+    gaps = np.diff([t_train] + stamps)
+    lines = [json.loads(x) for x in text.getvalue().strip().splitlines() if x.startswith("{")]
+    return run, lines, per_step, gaps, phases, torch.cuda.max_memory_allocated() / 2**30, wall
+
+
+def check_shadow_map_cuda_vs_cpu(card: str):
+    """The shadow map of a 16×16 view (sun at azimuth 30°, elevation 50°;
+    threshold 0 and sigmoid scale 5, so the untrained DDF's visibility is
+    not saturated) of the small joint configuration of phase 3 from the same
+    params on the card and on the CPU: within the DDF's bound of phase 3,
+    5e-3 (its bf16-rounded FiLM inputs)."""
+    from neusky_torch.engine.render_features import render_shadow_map
+
+    cfg, _ = small_configs(joint=True)
+    params0 = NeuSkyModel(cfg, device="cpu").init(torch.Generator().manual_seed(3))
+    cams = generate_synthetic_scene(SyntheticSceneConfig(num_cameras=2, width=16, height=16))["cameras"]
+    got = {}
+    for dev in ("cpu", "cuda"):
+        params = tree_map(lambda x: x.detach().clone().to(dev), params0)
+        got[dev] = render_shadow_map(NeuSkyModel(cfg, device=dev), params, cams.to(dev).generate_rays(1),
+                                     azimuth_deg=30.0, elevation_deg=50.0, threshold=0.0, sigmoid_scale=5.0)
+    want, card_out = got["cpu"], got["cuda"]
+    err = {k: float(np.abs(card_out[k] - want[k]).max()) for k in want}
+    log(f"small shadow map on the card vs the CPU ({card}): max abs diff " + json.dumps(
+        {k: float(f"{v:.3g}") for k, v in err.items()}) + f"; shadow mean {card_out['shadow_map'].mean():.4f}")
+    check(max(err.values()) <= 5e-3, "the shadow map on the card differs from the CPU")
+
+
+def run_tools_path(card: str):
+    """Phase 11: see the module docstring."""
+    from neusky_torch import cli
+    from neusky_torch.core.colour import sRGB_to_linear
+    from neusky_torch.core.spherical import look_at_target
+    from neusky_torch.engine.render_features import AnimationConfig, render_illumination_animation, render_shadow_probe
+    from neusky_torch.tools import eval_from_ckpt, fit_prior_init_latent, render_animation, render_from_ckpt
+    from neusky_torch.utils.profiling import trace_context
+    from neusky_torch.utils.viz import load_png
+    from neusky_torch.viewer import MODES, ViewerState, make_handler
+
+    t_phase = time.perf_counter()
+    walls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # 1. the canonical recipe at full width, with bench's knob
+        ckpt = tmp / "sanity"
+        with knobs_set(BENCH_KNOBS):
+            run, lines, per_step, gaps, phases, peak, walls["train_sanity"] = run_sanity_counted(
+                SANITY_ARGS + ["--ckpt-dir", str(ckpt), "--shadow-out", str(tmp / "shadow.png"),
+                               "--out", str(tmp / "sanity.jsonl")], "train_sanity")
+        expected = expected_launches_per_step(run.cfg, run.pipeline)
+        check(expected == 7 and per_step == [expected] * SANITY_STEPS,
+              f"train_sanity: K1 launches per step {per_step}, expected {expected}")
+        check(phases == {"boundary_eval": 0, "shadow_map": 0}, f"train_sanity: K1 launches outside the steps {phases}")
+        records = [r for r in lines if "total_loss" in r]
+        evals = [r for r in lines if "eval_at" in r]
+        check([r["step"] for r in records] == [1, 8, 16, 24] and all(
+            math.isfinite(v) for r in records for v in r.values() if isinstance(v, float)), f"records {records}")
+        check(len(evals) == 1 and evals[0]["eval_at"] == SANITY_STEPS and all(
+            math.isfinite(p) for p in evals[0]["eval_psnr"]), f"eval records {evals}")
+        check((ckpt / "latest.json").exists() and json.loads((ckpt / "latest.json").read_text())["step"] == SANITY_STEPS,
+              "train_sanity wrote no checkpoint")
+        check(load_png(str(tmp / "shadow.png")).shape == (64, 64, 3), "the shadow PNG does not decode")
+        steady = float(np.mean(gaps[2:]))
+        log(f"train_sanity ({card}): {SANITY_STEPS} steps of the canonical recipe (NEUSKY_BF16_MAPPING=1) in "
+            f"{walls['train_sanity']:.3f} s wall (set-up, the boundary eval of 2 images with a 30-step fit and the "
+            f"shadow map included); steady {steady * 1e3:.3f} ms a step (steps 3..{SANITY_STEPS}, each synchronised, "
+            f"min {gaps[2:].min() * 1e3:.3f}, max {gaps[2:].max() * 1e3:.3f}); peak device memory {peak:.3f} GiB; K1 "
+            f"launches per step {per_step[0]} x {len(per_step)}, boundary eval {phases['boundary_eval']}, shadow map "
+            f"{phases['shadow_map']}; first / last record " + json.dumps(records[0]) + " / " + json.dumps(records[-1])
+            + "; eval " + json.dumps(evals[0]))
+
+        # 2. the GT-illumination probe
+        with knobs_set(BENCH_KNOBS):
+            gt_run, gt_lines, gt_steps, _, _, _, walls["train_sanity --gt-illumination"] = run_sanity_counted(
+                [str(GT_STEPS), "1", "--gt-illumination"], "train_sanity --gt-illumination")
+        table = gt_run.params["gt_probe_illumination"]["log_light"].detach()
+        start = torch.log(torch.clamp(sRGB_to_linear(torch.tensor(gt_run.cfg.gt_probe_background, device=table.device)),
+                                      min=1e-4))
+        gt_records = [r for r in gt_lines if "total_loss" in r]
+        check(gt_steps == [expected] * GT_STEPS, f"train_sanity --gt-illumination: K1 launches per step {gt_steps}")
+        check(len(gt_records) == GT_STEPS and all(math.isfinite(r["total_loss"]) for r in gt_records),
+              f"gt records {gt_records}")
+        moved = float((table - start).abs().max())
+        check(moved > 0, "the GT-probe table did not move")
+        log(f"train_sanity --gt-illumination ({card}): {GT_STEPS} steps in {walls['train_sanity --gt-illumination']:.3f}"
+            f" s wall; K1 launches per step {gt_steps}; table moved by up to {moved:.3g}; total loss "
+            + " -> ".join(f"{r['total_loss']}" for r in gt_records) + f"; psnr {gt_records[-1]['psnr']}")
+        del gt_run
+
+        # 3. evaluation and renders from the checkpoint
+        with knobs_set(BENCH_KNOBS), contextlib.redirect_stdout(io.StringIO()):
+            res, walls["eval_from_ckpt"], n_eval = counted(lambda: eval_from_ckpt.main(
+                ["--ckpt-dir", str(ckpt), "--fit-steps", "30", "--out", str(tmp / "eval.json")]))
+        with contextlib.redirect_stdout(io.StringIO()):
+            rec, walls["render_from_ckpt"], n_render = counted(lambda: render_from_ckpt.main(
+                [str(ckpt), "--out-prefix", str(tmp / "render")]))
+        check(n_eval == 0 and n_render == 0, f"K1 launched {n_eval} / {n_render} times in eval / render_from_ckpt")
+        check(res["ckpt_step"] == SANITY_STEPS and all(math.isfinite(v) for v in res["mean"].values()),
+              f"eval_from_ckpt {res['mean']}")
+        check(all(math.isfinite(v) for v in rec.values()) and load_png(str(tmp / "render_shadow.png")).shape
+              == (64, 64, 3), f"render_from_ckpt {rec}")
+        log(f"eval_from_ckpt ({card}): {walls['eval_from_ckpt']:.3f} s wall (30-step fit, 2 renders of 64x64 with "
+            f"GT-layer metrics); K1 launches {n_eval}; mean " + json.dumps({k: round(v, 4) for k, v in res["mean"].items()}))
+        log(f"render_from_ckpt ({card}): {walls['render_from_ckpt']:.3f} s wall; K1 launches {n_render}; "
+            + json.dumps(rec))
+
+        # 4. animations: the library call on the recipe's camera 0 (64x64),
+        # then the tool's three commands on a cli run of the synthetic demo
+        rb0 = run.dm.train_cameras.generate_rays(0)
+        seq, walls["render_illumination_animation"], n_anim = counted(lambda: render_illumination_animation(
+            run.model, run.params, rb0, 0, AnimationConfig(num_frames=4, output_dir=str(tmp / "rot"))))
+        check(n_anim == 0 and seq.shape == (4, 64 * 64, 3) and np.isfinite(seq).all()
+              and np.abs(seq[1] - seq[0]).max() > 0, f"illumination animation {seq.shape}, K1 {n_anim}")
+        log(f"render_illumination_animation ({card}): 4 frames of 64x64 in {walls['render_illumination_animation']:.3f}"
+            f" s; K1 launches {n_anim}; frame 0 vs 1 max diff {np.abs(seq[1] - seq[0]).max():.4f}")
+        cli_run = tmp / "cli_run"
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, walls["cli train neusky --synthetic-demo (2 steps)"], n_cli = counted(lambda: cli.main(
+                ["train", "neusky", "--synthetic-demo", "--max-iterations", "2", "--output-dir", str(cli_run)]))
+        check(n_cli == 2 * expected, f"cli train: K1 launches {n_cli}")
+        frames = [{"camera_to_world": c2w.reshape(-1).tolist(), "fov": 50.0}
+                  for c2w in look_at_target(np.asarray([[1.2, 0.2, 0.4], [-0.3, 1.1, 0.5]], np.float32),
+                                            np.zeros((2, 3)))]
+        (tmp / "path.json").write_text(json.dumps({"render_height": 64, "render_width": 64, "camera_path": frames}))
+        common = ["--load-dir", str(cli_run), "--method", "neusky", "--out", str(tmp / "anim")]
+        for name, argv, want in (
+                ("illumination-rotation", ["--frames", "4"], {"frames": 4}),
+                ("camera-path", [str(tmp / "path.json"), "--height", "64", "--width", "64"], {"frames": 2}),
+                ("envmaps", [], {"envmaps": 8})):
+            with contextlib.redirect_stdout(io.StringIO()):
+                out, walls[f"render_animation {name}"], n = counted(lambda: render_animation.main([name, *argv, *common]))
+            check(n == 0 and {k: out[k] for k in want} == want, f"render_animation {name}: {out}, K1 {n}")
+            log(f"render_animation {name} ({card}): {walls[f'render_animation {name}']:.3f} s wall (the run's load "
+                f"included); K1 launches {n}; " + json.dumps(out))
+        with np.load(tmp / "anim" / "render_sequence.npz") as z:
+            check(z["rgb"].shape == (4, 48 * 48, 3) and np.isfinite(z["rgb"]).all(), "rotation sequence")
+        with np.load(tmp / "anim" / "sequence.npz") as z:
+            check(z["rgb"].shape == (2, 64, 64, 3) and np.isfinite(z["rgb"]).all(), "camera-path sequence")
+        check(np.isfinite(np.load(tmp / "anim" / "envmap_007_hdr.npy")).all(), "envmap")
+
+        # 5. the sky-visibility probe at a point on the sphere
+        probe, walls["render_shadow_probe"], n_probe = counted(lambda: render_shadow_probe(
+            run.model, run.params, np.array([0.41, 0.0, 0.05], np.float32), side_length=64))
+        check(n_probe == 0 and probe.shape == (32, 64) and np.isfinite(probe).all()
+              and 0.0 <= probe.min() and probe.max() <= 1.0, f"probe {probe.shape}")
+        log(f"render_shadow_probe ({card}): 32x64 in {walls['render_shadow_probe']:.3f} s; K1 launches {n_probe}; "
+            f"visible share {float((probe > 0.5).mean()):.4f}")
+
+        # 6. the viewer: every mode and one probe over HTTP, on the recipe's model
+        server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(ViewerState(run.model, run.params)))
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        gets = {}
+        try:
+            k1.launches[k1.KERNEL_NAME] = 0
+            for name in (*MODES, "probe"):
+                path = "/probe?px=0.5&py=0.5" if name == "probe" else f"/render?mode={name}"
+                t0 = time.perf_counter()
+                body = urllib.request.urlopen(f"{url}{path}&az=30&el=20&dist=1.2", timeout=300).read()
+                gets[name] = time.perf_counter() - t0
+                (tmp / "view.png").write_bytes(body)
+                shape = load_png(str(tmp / "view.png")).shape
+                check(shape == ((64, 128, 3) if name == "probe" else (512, 512, 3)), f"viewer {name}: {shape}")
+            n_view = k1_launches()
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=60)
+        check(not thread.is_alive() and n_view == 0, f"viewer: K1 launches {n_view}")
+        walls["viewer (9 GETs)"] = sum(gets.values())
+        log(f"viewer ({card}): 8 modes and a probe at 96x96 over HTTP, ms a GET " + json.dumps(
+            {k: round(t * 1e3, 1) for k, t in gets.items()}) + f"; K1 launches {n_view}")
+
+        # 7. the prior's init latent, on the bundled prior
+        prior = tmp / "reni_prior_variational"
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            rc, walls["fit_prior_init_latent"], n_prior = counted(lambda: fit_prior_init_latent.main(
+                ["--prior", str(prior), *PRIOR_INIT_ARGS]))
+        stats = json.loads([x for x in text.getvalue().splitlines() if x.startswith("{")][-1])
+        with np.load(prior / "reni_prior.npz") as z:
+            init = z["init_latent"] if rc == 0 else None
+        check(rc == 0 and n_prior == 0 and init.shape == (100, 3) and np.isfinite(init).all(),
+              f"fit_prior_init_latent: exit {rc}, K1 {n_prior}, {stats}")
+        log(f"fit_prior_init_latent ({card}): {' '.join(PRIOR_INIT_ARGS)} on the bundled prior in "
+            f"{walls['fit_prior_init_latent']:.3f} s wall; K1 launches {n_prior}; " + json.dumps(stats))
+
+        # 8. a trace of two recipe steps
+        def two_steps():
+            with trace_context(str(tmp / "trace")):
+                for i in range(2):
+                    run.step_fn(run.params, run.dm.next_train(i), float(SANITY_STEPS + i), None, run.generator)
+        _, walls["trace_context (2 steps)"], n_trace = counted(two_steps)
+        traces = list((tmp / "trace").glob("trace_*.json"))
+        events = json.loads(traces[0].read_text())["traceEvents"] if len(traces) == 1 else []
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        check(n_trace == 2 * expected and kernels, f"trace: {len(traces)} files, {len(kernels)} kernel events, "
+              f"K1 {n_trace}")
+        log(f"trace_context ({card}): 2 steps traced in {walls['trace_context (2 steps)']:.3f} s (export included), "
+            f"{traces[0].stat().st_size / 2**20:.1f} MiB, {len(kernels)} kernel events; K1 launches {n_trace}")
+        del run
+
+    check_step_cuda_vs_cpu(joint=True, variant="gt_probe")
+    check_step_cuda_vs_cpu(joint=True, variant="blinn_phong")
+    check_shadow_map_cuda_vs_cpu(card)
+    log("phase 11 wall seconds " + json.dumps({k: round(v, 3) for k, v in walls.items()}))
+    log(f"phase 11 took {time.perf_counter() - t_phase:.3f} s")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1313,6 +1616,7 @@ def main() -> int:
     check_reni_cuda_vs_cpu(card)
     log(f"phase 9 took {time.perf_counter() - t9:.3f} s; the script so far {time.perf_counter() - t_start:.3f} s")
     bench = run_bench_path(card)
+    run_tools_path(card)
     joint_k1 = {k: sum(r[k] for r in sites) for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
     log(f"phase 5's joint step K1 (unfused, float32 mapping): {main_launches} launches in {STEPS} steps, "
         + json.dumps(joint_k1) + " ms a step")

@@ -1,4 +1,4 @@
-"""Perspective cameras and ray generation (mirror of
+"""Perspective and equirectangular cameras and ray generation (mirror of
 ``neusky_tpu/core/cameras.py``; OpenGL convention: the camera looks down
 −z, +y up, image rows grow downward)."""
 
@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import math
 
 import torch
 
@@ -60,13 +61,24 @@ class Cameras:
         fx, fy = self.fx[cam_idx], self.fy[cam_idx]
         cx, cy = self.cx[cam_idx], self.cy[cam_idx]
         v, u = pixel_coords[..., 0], pixel_coords[..., 1]
-        if self.camera_type != int(CameraType.PERSPECTIVE):
-            raise NotImplementedError("only perspective cameras are ported so far")
-        dir_x = (u - cx) / fx
-        dir_y = -(v - cy) / fy
-        dir_z = -torch.ones_like(dir_x)
+        if self.camera_type == int(CameraType.PERSPECTIVE):
+            dir_x = (u - cx) / fx
+            dir_y = -(v - cy) / fy
+            dir_z = -torch.ones_like(dir_x)
+            pixel_area = ((1.0 / fx) * (1.0 / fy))[..., None]
+        elif self.camera_type == int(CameraType.EQUIRECTANGULAR):
+            # nerfstudio's panorama in y-up camera space: the width is 2·cx,
+            # θ = −2π·u/width the azimuth, φ = π·v/height the polar angle
+            # from the image's top row
+            theta = -2.0 * math.pi * (u / (2.0 * cx))
+            phi = math.pi * (v / (2.0 * cy))
+            dir_x = torch.sin(phi) * torch.sin(theta)
+            dir_y = torch.cos(phi)
+            dir_z = torch.sin(phi) * torch.cos(theta) * -1.0
+            pixel_area = (math.pi / (2.0 * cy) * 2.0 * math.pi / (2.0 * cx) * torch.sin(phi))[..., None]
+        else:
+            raise ValueError(f"unknown camera type {self.camera_type}")
         dirs_cam = torch.stack([dir_x, dir_y, dir_z], dim=-1)
-        pixel_area = ((1.0 / fx) * (1.0 / fy))[..., None]
         dirs_world = torch.einsum("nij,nj->ni", c2w[..., :3, :3], dirs_cam)
         norm = torch.linalg.norm(dirs_world, dim=-1, keepdim=True)
         dirs_world = dirs_world / norm

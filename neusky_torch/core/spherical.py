@@ -1,5 +1,5 @@
 """Sphere math (mirror of ``neusky_tpu/core/spherical.py``): ray/sphere
-intersection, look-at frames, random rotations, random points and
+intersection, look-at frames, rotations about z, random rotations, random points and
 directions on the sphere, and the icosphere."""
 
 from __future__ import annotations
@@ -110,6 +110,15 @@ def look_at_target(
     c2w[..., :3, 3] = cam
     c2w[..., 3, 3] = 1.0
     return c2w
+
+
+def rot_z(gamma) -> torch.Tensor:
+    """Rotations about z by ``gamma`` (a scalar or [...], radians) →
+    [..., 3, 3] (JAX ``core/spherical.py::rot_z``)."""
+    gamma = torch.as_tensor(gamma, dtype=torch.float32)
+    c, s = torch.cos(gamma), torch.sin(gamma)
+    zeros, ones = torch.zeros_like(c), torch.ones_like(c)
+    return torch.stack([c, -s, zeros, s, c, zeros, zeros, zeros, ones], -1).reshape(*gamma.shape, 3, 3)
 
 
 def random_rotation_matrix(q: torch.Tensor) -> torch.Tensor:

@@ -97,6 +97,19 @@ def load_checkpoint(base: Path, step: Optional[int], params_template, opt_state_
     return params, state["opt_state"], state["step"]
 
 
+def resume_into(base: Path, step: Optional[int], params, optimizer) -> int:
+    """Resume: the checkpoint's params copied into ``params`` in place (the
+    optimizer holds those tensors) and its state into ``optimizer`` (a
+    ``GroupedAdam``) → the step."""
+    restored, opt_state, step = load_checkpoint(base, step, params, optimizer.state_dict())
+    restored = dict(tree_items(restored))
+    with torch.no_grad():
+        for k, t in tree_items(params):
+            t.copy_(restored[k])
+    optimizer.load_state_dict(opt_state)
+    return step
+
+
 def load_param_subtrees(
     base: Path,
     step: Optional[int],

@@ -16,6 +16,7 @@ no hash-table gradient (K1) runs.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from neusky_torch.core.rays import RayBundle
+from neusky_torch.core.spherical import rot_z
 from neusky_torch.data.datamanager import DataManager, batch_to_device
 from neusky_torch.data.nerfosr_eval import global_least_squares_scale
 from neusky_torch.engine import metrics as M
@@ -43,17 +45,25 @@ from neusky_torch.tree import tree_map
 RENDER_KEYS = ("rgb", "albedo", "accumulation", "depth", "p2p_dist", "normal")
 
 
+@contextlib.contextmanager
+def eval_grad_mode(model: NeuSkyModel):
+    """The eval forward's autograd mode: ``torch.inference_mode`` where the
+    field's spatial gradient is analytic, autograd on (for d/dx only)
+    where autograd takes it."""
+    analytic = model.field.config.gradient_mode == "forward"
+    with torch.inference_mode(analytic), torch.set_grad_enabled(not analytic):
+        yield
+
+
 def make_render_chunk_fn(model: NeuSkyModel, chunk_size: int = 4096) -> Tuple[Callable, int]:
     """(chunk_fn, chunk_size): ``chunk_fn(params, ray_bundle, image_idx,
     rotation=None)`` is the eval forward of one chunk of rays with the sky
     of eval slot ``image_idx`` (``rotation`` [3, 3] rotates it), returning
-    :data:`RENDER_KEYS`.  It runs under ``torch.inference_mode`` (with
-    autograd on only for a field whose spatial gradient needs it)."""
-    analytic = model.field.config.gradient_mode == "forward"
+    :data:`RENDER_KEYS`, under :func:`eval_grad_mode`."""
 
     def chunk_fn(params, ray_bundle: RayBundle, image_idx: int, rotation: Optional[torch.Tensor] = None):
         dev = ray_bundle.origins.device
-        with torch.inference_mode(analytic), torch.set_grad_enabled(not analytic):
+        with eval_grad_mode(model):
             out = model.forward(
                 params, ray_bundle, torch.tensor([image_idx], device=dev),
                 torch.zeros((ray_bundle.num_rays,), dtype=torch.long, device=dev),
@@ -163,13 +173,6 @@ def fit_eval_latents(
     return params, torch.stack(trace).cpu().tolist()
 
 
-def _z_rotations(gamma: torch.Tensor) -> torch.Tensor:
-    """Rotations about z by ``gamma`` [S] → [S, 3, 3]."""
-    c, s = torch.cos(gamma), torch.sin(gamma)
-    zeros, ones = torch.zeros_like(gamma), torch.ones_like(gamma)
-    return torch.stack([c, -s, zeros, s, c, zeros, zeros, zeros, ones], -1).reshape(-1, 3, 3)
-
-
 def fit_eval_rotation(
     model: NeuSkyModel,
     params,
@@ -202,7 +205,7 @@ def fit_eval_rotation(
     trace = []
     for i in range(steps):
         batch = {**{k: v[i] for k, v in stacked.items()}, "cameras": cameras}
-        rot = _z_rotations(torch.sigmoid(q["rot_logit"]) * 2.0 * math.pi)[batch["image_indices"]]  # [U, 3, 3]
+        rot = rot_z(torch.sigmoid(q["rot_logit"]) * 2.0 * math.pi)[batch["image_indices"]]  # [U, 3, 3]
         p = {**frozen, "eval_latents": {**base_eval, "eval_scale": q["scale"]}}
         optimizer.zero_grad()
         total = eval_latent_loss_fn(model, p, batch, float(i), rotation=rot)
@@ -325,7 +328,7 @@ def run_nerfosr_protocol(
         # reference registers eval_rotation but renders with the identity
         # (``neusky_pipeline.py:423``); rendering with the rotation the scale
         # was fitted under is the consistent choice
-        session_rot = _z_rotations(torch.as_tensor(gamma, dtype=torch.float32, device=dev))
+        session_rot = rot_z(torch.as_tensor(gamma, dtype=torch.float32, device=dev))
     else:
         fit_pool = "compare" if optimise_compare_eval_scale else "optimise"
         params, fit_losses = fit_eval_latents(model, params, None, steps=fit_steps,

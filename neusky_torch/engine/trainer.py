@@ -15,13 +15,12 @@ import torch
 from neusky_torch.data.datamanager import DataManager
 from neusky_torch.device import resolve_device
 from neusky_torch.engine import optimizers as opt_mod
-from neusky_torch.engine.checkpoint import load_checkpoint, load_illumination_prior, save_checkpoint
+from neusky_torch.engine.checkpoint import load_illumination_prior, resume_into, save_checkpoint
 from neusky_torch.engine.eval_loop import eval_image_metrics, fit_eval_latents
 from neusky_torch.engine.eval_panels import image_metrics_and_panels
 from neusky_torch.models.neusky import NeuSkyModel
 from neusky_torch.models.pipeline import PipelineConfig
 from neusky_torch.parallel.mesh import make_train_step
-from neusky_torch.tree import tree_items
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,10 +149,5 @@ class Trainer:
         holds no generator state: the draw stream goes on from this
         trainer's seed, as JAX's does, so a resumed run is not the run that
         did not stop, draw for draw."""
-        params, opt_state, self.step = load_checkpoint(Path(path), step, self.params, self.optimizer.state_dict())
-        restored = dict(tree_items(params))
-        with torch.no_grad():
-            for k, t in tree_items(self.params):
-                t.copy_(restored[k])
-        self.optimizer.load_state_dict(opt_state)
+        self.step = resume_into(Path(path), step, self.params, self.optimizer)
         self.datamanager.reseed(self.step)

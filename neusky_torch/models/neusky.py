@@ -14,8 +14,11 @@ the SDF.
 ``forward_with_ddf_gt`` (``fused_ddf_gt_pass``) runs the scene rays and the
 DDF's ground-truth rays through one proposal and field pass.
 
-Not ported yet: the GT-illumination probe and Blinn-Phong shading; a config
-that asks for them raises ``NotImplementedError``.
+``gt_illumination_probe`` replaces the RENI decode with a learnable
+per-direction HDR light table (``gt_probe_illumination/log_light``, shared
+by every image, the light directions unrotated) and the fixed analytic sky
+``gt_probe_background``: the synthetic scene's quality ceiling.  A field
+with ``predict_shininess`` is shaded Blinn-Phong, else Lambertian.
 
 Randomness: ``forward`` takes ``draws``, a dict of explicit random draws
 (see :meth:`NeuSkyModel.draw`); any draw it lacks comes from ``generator``.
@@ -47,7 +50,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
-from neusky_torch.core.colour import linear_to_sRGB
+from neusky_torch.core.colour import linear_to_sRGB, sRGB_to_linear
 from neusky_torch.core.rays import (
     RayBundle,
     RaySamples,
@@ -68,7 +71,7 @@ from neusky_torch.models.ddf_model import DDFModel, DDFModelConfig
 from neusky_torch.nets.density import neus_alpha
 from neusky_torch.sampling.illumination import IcosahedronSampler
 from neusky_torch.sampling.proposal import ProposalSamplerConfig, proposal_sample
-from neusky_torch.shading.lambertian import lambertian_composite
+from neusky_torch.shading.lambertian import blinn_phong_composite, lambertian_composite
 from neusky_torch.tree import tree_map
 
 
@@ -143,6 +146,8 @@ class NeuSkyModelConfig:
     cos_anneal_ratio: float = 1.0
     gt_illumination_probe: bool = False
     gt_probe_background: tuple = (0.35, 0.55, 0.95)
+    """sRGB sky behind the scene in probe mode (the synthetic scene's
+    ``sky_colour``)."""
     fused_ddf_gt_pass: bool = False
     sdf_level_set_subset: int = 64
 
@@ -212,8 +217,6 @@ class NeuSkyModel:
     (default CUDA; raises without a card unless ``device="cpu"``)."""
 
     def __init__(self, config: NeuSkyModelConfig, device="cuda"):
-        if config.gt_illumination_probe or config.sdf_field.predict_shininess:
-            raise NotImplementedError("the GT-illumination probe and Blinn-Phong shading are not ported yet")
         self.config = config
         self.device = resolve_device(device)
         self.field = SDFAlbedoField(config.sdf_field)
@@ -249,6 +252,11 @@ class NeuSkyModel:
             params[f"proposal_networks_{i}"] = pf.init(generator, dev)
         if self.ddf is not None:
             params["ddf_field"] = self.ddf.init(generator, dev)
+        if c.gt_illumination_probe:
+            # log-parameterised: the table spans HDR decades and stays
+            # positive; it starts at the background's linear level
+            log_bg = torch.log(torch.clamp(self._gt_probe_background(), min=1e-4))
+            params["gt_probe_illumination"] = {"log_light": log_bg[None, :].repeat(self.num_directions, 1)}
         if c.losses.vis_sigmoid_method == "learnable":
             scale = 1.0 if c.losses.vis_optimise_sigmoid_scale else c.visibility_sigmoid_scale
             params["visibility_sigmoid"] = {
@@ -320,6 +328,10 @@ class NeuSkyModel:
             for i, pf in enumerate(self.proposal_fields)
         ]
 
+    def _gt_probe_background(self) -> torch.Tensor:
+        """The probe's sky background, linear [3]."""
+        return sRGB_to_linear(torch.tensor(self.config.gt_probe_background, dtype=torch.float32, device=self.device))
+
     def _select_latents(self, params, train: bool, fitting_eval_latents: bool):
         """(latents [I, L, 3], scales [I]): the train group while training,
         the eval group in eval mode and while the eval latents are fitted."""
@@ -344,13 +356,18 @@ class NeuSkyModel:
         """→ (illum_dirs [D, 3], hdr_light_colours [N, D, 3],
         hdr_background [N, 3]); the RENI decode is a static [U·D] batch.
         ``rotation`` ([3, 3], or [U, 3, 3] one per image) rotates the
-        decoded sky."""
+        decoded sky.  In probe mode (``gt_illumination_probe``) the light
+        is the table for every ray and the background the fixed sky."""
         c = self.config
-        apply_rot = False if (not train and c.fix_test_illumination_directions) else None
+        apply_rot = False if (c.gt_illumination_probe or (not train and c.fix_test_illumination_directions)) else None
         dirs = self.illumination_sampler(
             ray_bundle.origins.device, rotation_normals, generator, apply_random_rotation=apply_rot
         )
         d = dirs.shape[0]
+        if c.gt_illumination_probe:
+            n = ray_bundle.num_rays
+            light = torch.exp(params["gt_probe_illumination"]["log_light"])  # [D, 3]
+            return dirs, light[None].expand(n, d, 3), self._gt_probe_background()[None].expand(n, 3)
         u = image_indices.shape[0]
         latents, scales = self._select_latents(params, train, fitting_eval_latents)
         z_img = latents[image_indices]  # [U, L, 3]
@@ -613,11 +630,17 @@ class NeuSkyModel:
                 compute_sdf_at_termination=train and c.losses.sdf_level_set_visibility,
                 stoch_salt=self._field_salt(draws.get("sdf_salt")),
             )
-        rgb = lambertian_composite(
-            field_out["albedo"], field_out["normal"], illum_dirs, hdr_light,
-            vis_dict["visibility"] if vis_dict is not None else None, hdr_background, weights,
-            clip_output=not train,
-        )
+        visibility = vis_dict["visibility"] if vis_dict is not None else None
+        if "shininess" in field_out:
+            rgb = blinn_phong_composite(
+                field_out["albedo"], field_out["normal"], illum_dirs, hdr_light, visibility, hdr_background,
+                weights, field_out["shininess"], -rb.directions, clip_output=not train,
+            )
+        else:
+            rgb = lambertian_composite(
+                field_out["albedo"], field_out["normal"], illum_dirs, hdr_light, visibility, hdr_background,
+                weights, clip_output=not train,
+            )
         normal = render_normal(weights, field_out["normal"])
         outputs = {
             "rgb": rgb,

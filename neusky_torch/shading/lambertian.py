@@ -1,7 +1,8 @@
-"""Lambertian compositing with per-direction visibility (mirror of
-``neusky_tpu/shading/lambertian.py::lambertian_composite``), keeping the
+"""Lambertian and Blinn-Phong compositing with per-direction visibility
+(mirror of ``neusky_tpu/shading/lambertian.py``).  The Lambertian keeps the
 reference's count-normalisation quirk: the n·l sum is divided by the
-number of lit directions, not by a solid-angle weight."""
+number of lit directions, not by a solid-angle weight; Blinn-Phong sums raw
+contributions, as the reference does."""
 
 from __future__ import annotations
 
@@ -34,10 +35,44 @@ def lambertian_composite(
     comp_rgb = torch.sum(weights * radiance, dim=-2)
     acc = torch.sum(weights, dim=-2)
     comp_rgb = linear_to_sRGB(comp_rgb + background_illumination * (1.0 - acc))
-    if clip_output:
-        # JAX's clip, derivative included: half the gradient at a bound,
-        # where the straight-through sRGB clamp puts saturated pixels (min
-        # and max split ties; torch.clamp passes all of it).  The eval
-        # latent fit differentiates through here.
-        comp_rgb = torch.minimum(torch.maximum(comp_rgb, torch.zeros_like(comp_rgb)), torch.ones_like(comp_rgb))
-    return comp_rgb
+    return _eval_clip(comp_rgb) if clip_output else comp_rgb
+
+
+def _eval_clip(comp_rgb: torch.Tensor) -> torch.Tensor:
+    # JAX's clip, derivative included: half the gradient at a bound,
+    # where the straight-through sRGB clamp puts saturated pixels (min
+    # and max split ties; torch.clamp passes all of it).  The eval
+    # latent fit differentiates through here.
+    return torch.minimum(torch.maximum(comp_rgb, torch.zeros_like(comp_rgb)), torch.ones_like(comp_rgb))
+
+
+def blinn_phong_composite(
+    albedos: torch.Tensor,  # [N, S, 3]
+    normals: torch.Tensor,  # [N, S, 3]
+    light_directions: torch.Tensor,  # [D, 3]
+    light_colours: torch.Tensor,  # [N, D, 3]
+    visibility: Optional[torch.Tensor],  # [N, S, D] or [N, 1, D] or None
+    background_illumination: torch.Tensor,  # [N, 3]
+    weights: torch.Tensor,  # [N, S, 1]
+    shininess: torch.Tensor,  # [N, S, 1]
+    view_dirs_world: torch.Tensor,  # [N, 3]
+    clip_output: bool = False,
+) -> torch.Tensor:
+    """sRGB pixel colour: per sample Σ_d vis_d · L_d · (albedo · clamp(n·l_d)
+    + max(clamp(n·h_d), 1e-6)^shininess) with h_d the half vector of l_d
+    and the view direction, no count normalisation; volume-composited over
+    the sky background."""
+    h = light_directions[None, :, :] + view_dirs_world[:, None, :]  # [N, D, 3]
+    h = h / torch.clamp(torch.linalg.norm(h, dim=-1, keepdim=True), min=1e-12)
+    dot_nl = torch.clamp(torch.einsum("nsi,di->nsd", normals, light_directions), 0.0, 1.0)
+    dot_nh = torch.clamp(torch.einsum("nsi,ndi->nsd", normals, h), 0.0, 1.0)
+    lit = light_colours[:, None, :, :]  # [N, 1, D, 3]
+    if visibility is not None:
+        lit = lit * visibility[..., None]
+    diffuse = albedos[:, :, None, :] * dot_nl[..., None]  # [N, S, D, 3]
+    specular = torch.pow(torch.clamp(dot_nh, min=1e-6), shininess)[..., None]  # [N, S, D, 1]
+    radiance = torch.sum(lit * (diffuse + specular), dim=2)  # [N, S, 3]
+    comp_rgb = torch.sum(weights * radiance, dim=-2)
+    acc = torch.sum(weights, dim=-2)
+    comp_rgb = linear_to_sRGB(comp_rgb + background_illumination * (1.0 - acc))
+    return _eval_clip(comp_rgb) if clip_output else comp_rgb

@@ -12,11 +12,13 @@ where ``illumination_prior_dir`` finds it (mirror of
      clipped sRGB sky loss that must descend;
   4. ``<output>/reni_prior.npz`` (``engine.checkpoint.save_prior``) and
      ``<output>/quality.json``; a model with ``illumination_prior_dir`` set
-     to ``<output>`` loads that decoder.
+     to ``<output>`` loads that decoder.  The file holds no mean-sky latent:
+     ``neusky_torch/tools/fit_prior_init_latent.py`` fits and adds it.
 
 Usage:
     python -m neusky_torch.tools.train_reni_prior --output outputs/reni_prior
     python -m neusky_torch.tools.train_reni_prior --quick --device cpu
+    python -m neusky_torch.tools.train_reni_prior --output outputs/reni_prior --gates-only
 
 Exits 0 when every gate passes, 1 when the prior is written but a gate
 fails.
@@ -27,7 +29,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import math
 import sys
 import time
 from pathlib import Path
@@ -49,6 +50,8 @@ def parse_args(argv=None):
                     help="directory for reni_prior.npz and quality.json (relative: from the repository root)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--quick", action="store_true", help="tiny decoder and corpus: a smoke run")
+    ap.add_argument("--gates-only", action="store_true",
+                    help="skip training: load the decoder that --output holds and (re)run the quality gates")
     ap.add_argument("--train-psnr-gate", type=float, default=None,
                     help="default 28 (autodecoder) / 16 (variational: decoding the posterior mean of a decoder "
                     "trained on z = mu + sigma*eps with sigma ~ 1 is bounded by that noise; 16 is a collapse floor)")
@@ -74,14 +77,21 @@ def parse_args(argv=None):
     return args
 
 
-def rot_z(gamma: float) -> np.ndarray:
-    c, s = math.cos(gamma), math.sin(gamma)
-    return np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]], np.float32)
+def prior_field_config(quick: bool):
+    """The decoder a prior trains: the canonical model's RENI field, or
+    ``--quick``'s tiny one (latent 8, hidden 32, 2 heads, 2 layers)."""
+    from neusky_torch.configs.neusky_config import neusky_model_config
+
+    cfg = dataclasses.replace(neusky_model_config(1, 1).illumination, fixed_decoder=False)
+    if quick:
+        cfg = dataclasses.replace(cfg, latent_dim=8, hidden_features=32, num_attention_heads=2, num_attention_layers=2)
+    return cfg
 
 
 def gates(args, trainer, heldout_skies: np.ndarray, field_cfg) -> dict:
     """The quality gates of a trained prior (see the module docstring)."""
     from neusky_torch.core.colour import linear_to_sRGB
+    from neusky_torch.core.spherical import rot_z
     from neusky_torch.models import losses as L
     from neusky_torch.sampling.illumination import EquirectangularSampler
 
@@ -95,7 +105,7 @@ def gates(args, trainer, heldout_skies: np.ndarray, field_cfg) -> dict:
         # f(R d, Z) == f(d, R^T Z): latents are [D, 3] vectors, z @ R = R^T z
         d = EquirectangularSampler(width=32)(dev)
         z = trainer.params["latents"][0]
-        rot = torch.as_tensor(rot_z(np.pi / 3), device=dev)
+        rot = rot_z(np.pi / 3).to(dev)
         equiv_err = float(torch.max(torch.abs(field.apply(decoder, d @ rot.T, z)["rgb"]
                                               - field.apply(decoder, d, z @ rot)["rgb"])))
         z0 = torch.zeros((field_cfg.latent_dim, 3), device=dev)
@@ -145,18 +155,38 @@ def gates(args, trainer, heldout_skies: np.ndarray, field_cfg) -> dict:
     return out
 
 
+def restore_for_gates(args, trainer, train_skies: np.ndarray, out: Path) -> None:
+    """``--gates-only``: the trainer's decoder from the prior ``out`` holds
+    (``<out>/reni_prior.npz``, else the bundled conversion of that name),
+    and its first 32 train latents refitted against it, so the train gate
+    measures the restored decoder and not random latents; the gates then
+    sample only those rows.  The step count is the one ``quality.json``
+    recorded, where there is one."""
+    from types import SimpleNamespace
+
+    from neusky_torch.engine.checkpoint import load_illumination_prior
+
+    restored = load_illumination_prior({"illumination_decoder": trainer.params["decoder"]},
+                                       SimpleNamespace(illumination_prior_dir=str(out)), init_latent=False)
+    trainer.params["decoder"] = restored["illumination_decoder"]
+    n_fit = min(32, args.num_skies)
+    z_train, _ = trainer.fit_heldout_latents(train_skies[:n_fit], steps=250, pixels_per_step=args.pixels_per_step)
+    with torch.no_grad():
+        trainer.params["latents"][:n_fit] = torch.as_tensor(z_train, device=trainer.device)
+    args.num_skies = n_fit
+    quality = out / "quality.json"
+    if quality.exists():
+        trainer.step = int(json.loads(quality.read_text()).get("steps", trainer.step))
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
 
-    from neusky_torch.configs.neusky_config import neusky_model_config
     from neusky_torch.data.sky_generator import generate_sky_corpus
     from neusky_torch.engine.checkpoint import REPO_ROOT, save_prior
     from neusky_torch.engine.reni_trainer import RENITrainer, RENITrainerConfig
 
-    field_cfg = dataclasses.replace(neusky_model_config(1, 1).illumination, fixed_decoder=False)
-    if args.quick:
-        field_cfg = dataclasses.replace(field_cfg, latent_dim=8, hidden_features=32,
-                                        num_attention_heads=2, num_attention_layers=2)
+    field_cfg = prior_field_config(args.quick)
     t0 = time.time()
     total = args.num_skies + args.holdout
     print(f"generating {total} procedural skies at {args.width}px ...", flush=True)
@@ -176,13 +206,17 @@ def main(argv=None) -> int:
     out = Path(args.output)
     if not out.is_absolute():
         out = REPO_ROOT / out
-    sync = torch.cuda.synchronize if trainer.device.type == "cuda" else (lambda: None)
-    t0 = time.time()
-    trainer.run(log_every=max(args.steps // 20, 1), log_fn=lambda rec: print(json.dumps(rec), flush=True))
-    sync()
-    train_time = time.time() - t0
-    print(f"trained {trainer.step} steps in {train_time:.1f}s", flush=True)
-    print(f"saved prior decoder to {save_prior(out, trainer.params['decoder'])}", flush=True)
+    if args.gates_only:
+        restore_for_gates(args, trainer, train_skies, out)
+        train_time = 0.0
+    else:
+        sync = torch.cuda.synchronize if trainer.device.type == "cuda" else (lambda: None)
+        t0 = time.time()
+        trainer.run(log_every=max(args.steps // 20, 1), log_fn=lambda rec: print(json.dumps(rec), flush=True))
+        sync()
+        train_time = time.time() - t0
+        print(f"trained {trainer.step} steps in {train_time:.1f}s", flush=True)
+        print(f"saved prior decoder to {save_prior(out, trainer.params['decoder'])}", flush=True)
 
     result = gates(args, trainer, heldout_skies, field_cfg)
     result.update(steps=trainer.step, train_seconds=train_time, num_skies=args.num_skies, width=args.width,

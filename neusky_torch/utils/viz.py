@@ -90,6 +90,12 @@ def _png_chunk(kind: bytes, data: bytes) -> bytes:
 def save_png_u8(path, image: np.ndarray):
     """Write a uint8 [H, W] (grey), [H, W, 3] (RGB) or [H, W, 4] (RGBA)
     image as an 8-bit PNG, its bytes as they are."""
+    with open(path, "wb") as f:
+        f.write(encode_png_u8(image))
+
+
+def encode_png_u8(image: np.ndarray) -> bytes:
+    """The 8-bit PNG file of a uint8 [H, W], [H, W, 3] or [H, W, 4] image."""
     arr = np.ascontiguousarray(image)
     if arr.dtype != np.uint8:
         raise ValueError(f"save_png_u8 takes uint8, got {arr.dtype}")
@@ -104,11 +110,8 @@ def save_png_u8(path, image: np.ndarray):
     h, w = arr.shape[:2]
     rows = arr.reshape(h, -1)
     raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()  # filter 0 per row
-    with open(path, "wb") as f:
-        f.write(PNG_SIGNATURE)
-        f.write(_png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour_type, 0, 0, 0)))
-        f.write(_png_chunk(b"IDAT", zlib.compress(raw, 6)))
-        f.write(_png_chunk(b"IEND", b""))
+    return (PNG_SIGNATURE + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour_type, 0, 0, 0))
+            + _png_chunk(b"IDAT", zlib.compress(raw, 6)) + _png_chunk(b"IEND", b""))
 
 
 def save_png(path: str, image: np.ndarray):
@@ -280,6 +283,16 @@ def resize_bilinear_u8(image: np.ndarray, width: int, height: int) -> np.ndarray
     if height != h:
         img = _resample_axis0(img, height)
     return np.ascontiguousarray(img)
+
+
+def resize_nearest(image: np.ndarray, width: int, height: int) -> np.ndarray:
+    """[H, W, ...] → [height, width, ...], each output pixel taking the
+    source pixel under its centre (what Pillow's ``NEAREST`` resize picks
+    when it enlarges)."""
+    h, w = image.shape[:2]
+    rows = np.minimum(((np.arange(height) + 0.5) * (h / height)).astype(np.int64), h - 1)
+    cols = np.minimum(((np.arange(width) + 0.5) * (w / width)).astype(np.int64), w - 1)
+    return image[rows][:, cols]
 
 
 def image_size(path) -> tuple:

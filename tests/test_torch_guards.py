@@ -53,7 +53,10 @@ def _entry_points():
     from neusky_torch.engine.trainer import Trainer, TrainerConfig
     from neusky_torch.models.neusky import NeuSkyModel
     from neusky_torch.models.pipeline import PipelineConfig
-    from neusky_torch.tools import train_reni_prior
+    from neusky_torch import viewer
+    from neusky_torch.tools import (
+        eval_from_ckpt, fit_prior_init_latent, render_animation, render_from_ckpt, train_reni_prior, train_sanity,
+    )
 
     cfg = neusky_model_config(2, 1)
     scene = generate_synthetic_scene(SyntheticSceneConfig(num_cameras=2, width=8, height=8))
@@ -70,10 +73,18 @@ def _entry_points():
         "cli": lambda: cli.main(["train", "neusky-tiny", "--synthetic-demo"]),
         "reni_trainer": lambda: RENITrainer(RENITrainerConfig(), np.ones((1, 4, 8, 3), np.float32)),
         "reni_prior_script": lambda: train_reni_prior.main(["--quick", "--steps", "1"]),
+        "train_sanity": lambda: train_sanity.main(["1", "1", "--tiny"]),
+        "eval_from_ckpt": lambda: eval_from_ckpt.main(["--ckpt-dir", "no-such-dir", "--tiny"]),
+        "render_from_ckpt": lambda: render_from_ckpt.main(["no-such-dir", "--tiny"]),
+        "render_animation": lambda: render_animation.main(["envmaps"]),
+        "viewer": lambda: viewer.main([]),
+        "fit_prior_init_latent": lambda: fit_prior_init_latent.main(["--quick"]),
     }
 
 
-@pytest.mark.parametrize("name", ["model", "datamanager", "trainer", "cli", "reni_trainer", "reni_prior_script"])
+@pytest.mark.parametrize("name", ["model", "datamanager", "trainer", "cli", "reni_trainer", "reni_prior_script",
+                                  "train_sanity", "eval_from_ckpt", "render_from_ckpt", "render_animation", "viewer",
+                                  "fit_prior_init_latent"])
 def test_entry_point_without_cpu_raises_when_cuda_absent(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -110,6 +121,13 @@ def test_guards_cover_the_trainers_and_the_protocol():
     assert {f"neusky_torch/{m}.py" for m in (
         "data/sky_generator", "data/nerfosr_eval", "engine/reni_trainer", "engine/reni_convert",
         "engine/ddf_trainer", "tools/train_reni_prior")} <= guarded
+
+
+def test_guards_cover_the_tools_around_a_trained_scene():
+    guarded = {str(p.relative_to(REPO)) for p in _port_files()}
+    assert {f"neusky_torch/{m}.py" for m in (
+        "viewer", "engine/render_features", "utils/profiling", "tools/train_sanity", "tools/eval_from_ckpt",
+        "tools/render_from_ckpt", "tools/render_animation", "tools/fit_prior_init_latent")} <= guarded
 
 
 def test_module_level_import_scan_sees_top_level_and_skips_functions():

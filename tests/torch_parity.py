@@ -5,6 +5,7 @@ port's explicit draws (the scene half and the DDF half)."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -186,6 +187,30 @@ def jax_fused_draws(cfg_j, pcfg_j, rng, n_scene: int) -> dict:
     draws = jax_scene_draws(cfg_j, rng, n_scene + s.num_samples_on_sphere * s.num_rays_per_sample)
     draws["ddf"] = {k: v for k, v in jax_ddf_draws(cfg_j, pcfg_j, rng).items() if k != "gt"}
     return draws
+
+
+class _PassThroughNumpy:
+    """numpy with an ``asarray`` that hands its argument back: a JAX
+    function ending in ``np.asarray`` then traces under ``jax.jit``."""
+
+    def __getattr__(self, name):
+        return getattr(np, name)
+
+    @staticmethod
+    def asarray(x, *a, **k):
+        return x
+
+
+def jitted(fn, model, *args, **kw):
+    """``fn(model, *args, **kw)`` of ``neusky_tpu.engine.render_features``
+    under ``jax.jit`` (run eagerly, JAX compiles each primitive on its own,
+    ~30 s a shadow map here) → host arrays."""
+    from neusky_tpu.engine import render_features as j_rf
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(j_rf, "np", _PassThroughNumpy())
+        out = jax.jit(functools.partial(fn, model, **kw))(*args)
+    return jax.tree_util.tree_map(np.asarray, out)
 
 
 def max_rel_err(a, b) -> float:
