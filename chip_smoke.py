@@ -105,9 +105,28 @@ Phases (any failure exits non-zero; no phase's failure is passed over):
    times in every one but the training steps.  Then a GT-probe joint step,
    a Blinn-Phong joint step and a shadow map on the card against the CPU
    at small size, with phase 3's bounds;
-12. one JSON line listing every kernel (K1 per step of (b), on its own
-   inputs, with their shapes), the card line, and the final
-   ``{"ok": true, "device": ...}`` line.
+12. the split step, the model variants and the diagnostic tools: (a)
+   bench's configuration (a) of phase 10 through ``Trainer`` with
+   ``use_split_step=True`` (3 warm-up + 4 steps, K1 7 a step as the fused
+   step's, its steady ms, busy share and peak memory beside phase 10's
+   fused (a)), then one small step split against fused on the card from
+   the same draws (loss 1e-4, parameters 1e-5); (b) the DDF trainer with
+   the ``Attention`` / ``sh`` DDF (hidden 256, 8 heads, 6 layers) at 8 ×
+   128 vMF rays for 10 steps, a small step of it against the CPU, and
+   ``ddf_predicted_normals`` on 1,024 rays against the CPU; (c) the RENI
+   trainer with the FiLM and the Concat decoders at the
+   ``RENIFieldConfig`` widths; (d) the SH, SG and envmap sky fields and
+   the icosphere encoding against the CPU at 492 directions × 8 latents;
+   (e) ``analyze_run``, ``prepare_nerfosr``, ``probe_sky_fit``,
+   ``diagnose_ckpt`` and ``ab_ddf_encoding --encodings nerf,hash`` (on (a)'s
+   checkpoint) and ``prior_fit_sanity``, K1 counted around each (3 a hash
+   DDF step, 7 a ``prior_fit_sanity`` step, 0 elsewhere);
+13. one JSON line listing every kernel (K1 per step of phase 12's split
+   step, on its own inputs, with their shapes), the card line, and the
+   final ``{"ok": true, "device": ...}`` line.
+
+``split_ab()`` is a separate command: the split and the fused step in
+turns, more steps each (see its docstring).
 """
 
 from __future__ import annotations
@@ -1212,6 +1231,7 @@ ALL_SLICE_KNOBS = {**BENCH_KNOBS, "NEUSKY_FUSED_GT": "1", "NEUSKY_VIS_REMAT": "d
                    "NEUSKY_BENCH_BF16": "1"}
 SDF_QUERY_CHUNK = 16384  # the level-set query's 1,024 × 64 points in 4 launches
 BENCH_WARMUP, BENCH_STEPS = 3, 4
+SPLIT_AB_STEPS = 12  # timed steps of each run of split_ab
 
 
 @contextlib.contextmanager
@@ -1236,14 +1256,17 @@ def bench_pipeline() -> PipelineConfig:
         num_sky_rays=256)
 
 
-def run_bench_config(label: str, knobs, sdf_query_chunk: int, card: str):
+def run_bench_config(label: str, knobs, sdf_query_chunk: int, card: str, split: bool = False, save_to=None,
+                     steps: int = BENCH_STEPS):
     """What ``bench.py:85-118`` builds, with ``knobs`` set (and restored
     after): ``apply_env_knobs(neusky_model_config(8, 2))``, bench's pipeline,
     the synthetic scene (8 cameras, 64×64) with 8 × 128 rays a step from
     the native sampler, the converted prior and the five Adam groups for
-    100,001 steps.  BENCH_WARMUP steps, then BENCH_STEPS timed steps (each
-    synchronised); K1's count zeroed before and read after every step; then
-    one step keeping K1's inputs and one profiled step."""
+    100,001 steps; with ``split`` the trainer takes the split step
+    (``use_split_step``).  BENCH_WARMUP steps, then ``steps`` timed steps
+    (each synchronised); K1's count zeroed before and read after every
+    step; then one step keeping K1's inputs and one profiled step; with
+    ``save_to`` the trainer's checkpoint is written there."""
     with knobs_set(knobs):
         cfg = dataclasses.replace(env_overrides.apply_env_knobs(neusky_model_config(8, 2)),
                                   sdf_query_chunk=sdf_query_chunk)
@@ -1254,7 +1277,7 @@ def run_bench_config(label: str, knobs, sdf_query_chunk: int, card: str):
         dm = DataManager(DataManagerConfig(pixel_sampler=PixelSamplerConfig(images_per_batch=8, rays_per_image=128),
                                            num_sky_rays=256, use_native_sampler=True),
                          scene["cameras"], scene["images"], scene["masks"], device="cuda")
-        trainer = Trainer(TrainerConfig(max_num_iterations=100001, steps_per_log=1, seed=0),
+        trainer = Trainer(TrainerConfig(max_num_iterations=100001, steps_per_log=1, seed=0, use_split_step=split),
                           NeuSkyModel(cfg, device="cuda"), pcfg, dm,
                           optimizer_groups=default_neusky_optimizer_groups(100001), device="cuda")
         n_rays, n_counted = 8 * 128, trainer._count_rays(dm.next_train(0))
@@ -1263,7 +1286,7 @@ def run_bench_config(label: str, knobs, sdf_query_chunk: int, card: str):
         torch.cuda.reset_peak_memory_stats()
         k1.launches[k1.KERNEL_NAME] = 0
         per_step, times = [], []
-        for s in range(BENCH_WARMUP + BENCH_STEPS):
+        for s in range(BENCH_WARMUP + steps):
             before = k1_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1279,19 +1302,22 @@ def run_bench_config(label: str, knobs, sdf_query_chunk: int, card: str):
         check(per_step == [expected] * len(per_step), f"{label}: K1 launches per step {per_step}, expected {expected}")
         peak = torch.cuda.max_memory_allocated() / 2**30
         steady = float(np.mean(times[BENCH_WARMUP:]))
-        log(f"{label} steady step (mean of {BENCH_STEPS} after {BENCH_WARMUP} warm-up): {steady * 1e3:.3f} ms, "
+        log(f"{label} steady step (mean of {steps} after {BENCH_WARMUP} warm-up): {steady * 1e3:.3f} ms, "
             f"{n_rays / steady:.1f} scene rays/s, {n_counted / steady:.1f} counted rays/s; peak device memory "
             f"{peak:.3f} GiB ({card})")
         captured = capture_k1_inputs(trainer)
         prof = profile_call(lambda: trainer.run(1), steady, card, f"{label} step")
         sites = check_k1_main_path_inputs(cfg, pcfg, n_rays, captured)
+        if save_to is not None:
+            trainer.save(str(save_to))
+        history = list(trainer.history)
         del captured, trainer, dm
     return {"label": label, "steady_ms": steady * 1e3, "scene_rays_per_s": n_rays / steady,
             "counted_rays_per_s": n_counted / steady, "peak_gib": peak, "k1_per_step": expected,
             "k1_launches": launches, "busy_share": prof and prof["busy_share"],
             "device_ms": prof and prof["device_ms"], "matmul_ms": prof and prof["by_kind_ms"].get("matmul", 0.0),
             "k1_ms_per_step": sum(r["ms"] for r in sites), "k1_bound_ms_per_step": sum(r["bound_ms"] for r in sites),
-            "k1_index_add_ms_per_step": sum(r["library_ms"] for r in sites), "sites": sites}
+            "k1_index_add_ms_per_step": sum(r["library_ms"] for r in sites), "sites": sites, "history": history}
 
 
 def run_bench_path(card: str):
@@ -1301,7 +1327,8 @@ def run_bench_path(card: str):
     check_step_cuda_vs_cpu(joint=True, knobs=ALL_SLICE_KNOBS, sdf_query_chunk=512)
     runs = [run_bench_config("bench (a)", BENCH_KNOBS, 0, card),
             run_bench_config("bench (b)", ALL_SLICE_KNOBS, SDF_QUERY_CHUNK, card)]
-    log("bench configurations " + json.dumps([{k: v for k, v in r.items() if k != "sites"} for r in runs]))
+    log("bench configurations " + json.dumps([{k: v for k, v in r.items() if k not in ("sites", "history")}
+                                              for r in runs]))
     log(f"phase 10 took {time.perf_counter() - t0:.3f} s")
     return runs
 
@@ -1584,6 +1611,383 @@ def run_tools_path(card: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the split step, the model variants and the diagnostic tools
+
+
+SPLIT_GROUPS = ("proposal_networks", "fields", "illumination_field", "visibility_sigmoid", "ddf_field")
+DDF_VARIANT_STEPS = 10
+RENI_VARIANT_STEPS = 5
+SKY_DIRECTIONS, SKY_LATENTS = 492, 8
+TOOL_STEPS = 4
+
+
+def check_split_vs_fused_on_card(card: str):
+    """Phase 12 (a): one step of the small joint configuration of phase 3,
+    fused and split, on the card from the same params, batch and draws:
+    the same K1 launches, the total loss to 1e-4 relative and the
+    parameters after the update to 1e-5 absolute (JAX's bounds,
+    ``tests/test_train_e2e.py:343-345``).  Adam's first update is
+    ±lr·sign(g), so an entry whose gradient is within 1e-3 of its array's
+    scale of zero may take the other sign (2·lr): the CPU tests' rule
+    (``tests/test_torch_split_step.py``)."""
+    from neusky_torch.engine.optimizers import GroupedAdam, OptimizerGroupConfig
+    from neusky_torch.parallel.mesh import make_train_step, make_train_step_split
+
+    cfg, pcfg = small_configs(joint=True)
+    scene = generate_synthetic_scene(SyntheticSceneConfig(num_cameras=2, width=32, height=32))
+    dm = DataManager(DataManagerConfig(pixel_sampler=PixelSamplerConfig(2, 16), num_sky_rays=8),
+                     scene["cameras"], scene["images"], scene["masks"], device="cuda")
+    batch = dm.next_train(0)
+    model = NeuSkyModel(cfg, device="cuda")
+    params0 = model.init(torch.Generator(device="cuda").manual_seed(3))
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    draws = model.draw(None, gen, batch["pixel_coords"].shape[0])
+    draws["ddf"] = draw_ddf_fit(model, pcfg, None, gen)
+    lr = 1e-3
+    out = {}
+    for name, make in (("fused", make_train_step), ("split", make_train_step_split)):
+        params = tree_map(lambda x: x.detach().clone(), params0)
+        opt = GroupedAdam(params, {g: OptimizerGroupConfig(lr=lr, schedule="constant", max_steps=10)
+                                   for g in SPLIT_GROUPS})
+        before = k1_launches()
+        aux = make(model, pcfg, opt)(params, batch, 10.0, _to(draws, "cuda"))
+        torch.cuda.synchronize()
+        out[name] = (float(aux["total_loss"]), dict(tree_items(params)), k1_launches() - before)
+    (tf, pf, kf), (ts, ps, ks) = out["fused"], out["split"]
+    worst, bad = 0.0, []
+    for k, v in pf.items():
+        diff = (ps[k].detach() - v.detach()).abs()
+        if v.grad is None:
+            if float(diff.max()) != 0.0:
+                bad.append(k)
+            continue
+        g = v.grad.abs()
+        flip_ok = g <= 1e-3 * g.max()
+        worst = max(worst, float(diff[~flip_ok].max()) if bool((~flip_ok).any()) else 0.0)
+        if bool(((diff > 1e-5) & ~flip_ok).any()) or float(diff.max()) > 2 * lr + 1e-5:
+            bad.append((k, float(diff.max())))
+    log(f"split vs fused step on the card ({card}): total {ts:.6f} vs {tf:.6f}; K1 launches {ks} vs {kf}; "
+        f"worst parameter difference after the update {worst:.3g} (outside sign flips of near-zero gradients)")
+    check(kf == ks == expected_launches_per_step(cfg, pcfg, batch["pixel_coords"].shape[0]),
+          f"K1 launches fused {kf}, split {ks}")
+    check(math.isfinite(ts) and abs(ts - tf) <= 1e-4 * abs(tf) and not bad,
+          f"the split step differs from the fused step on the card: {ts} vs {tf}; {bad}")
+
+
+def ddf_variant(cfg):
+    """The DDF with ``Attention`` conditioning and the ``sh`` position
+    encoding, at the ``DDFFieldConfig`` widths of the attention decoder."""
+    field = dataclasses.replace(cfg.ddf.field, conditioning="Attention", position_encoding_type="sh")
+    return dataclasses.replace(cfg, ddf=dataclasses.replace(cfg.ddf, field=field))
+
+
+def check_ddf_variant_cuda_vs_cpu(card: str):
+    """Phase 12 (b): one DDF trainer step of the Attention / ``sh`` DDF on
+    the small configuration of phase 3 (2 × 16 vMF rays, 8 sky rays) on the
+    card and on the CPU from the same params and draws: the loss to 1e-4
+    relative and every DDF gradient to phase 3's DDF bound, 5e-3 of its
+    array's scale."""
+    from neusky_torch.engine.ddf_trainer import DDFTrainer, DDFTrainerConfig
+
+    cfg, _ = small_configs(joint=True)
+    cfg = ddf_variant(cfg)
+    scene = generate_synthetic_scene(SyntheticSceneConfig(num_cameras=2, width=32, height=32))
+    params0 = NeuSkyModel(cfg, device="cpu").init(torch.Generator().manual_seed(3))
+    tcfg = DDFTrainerConfig(max_num_iterations=10, sampler=DDFSamplerConfig(
+        num_samples_on_sphere=2, num_rays_per_sample=16, only_sample_upper_hemisphere=True, concentration=20.0),
+        num_sky_rays=8)
+    out, draws = {}, None
+    for dev in ("cpu", "cuda"):
+        dm = DataManager(DataManagerConfig(pixel_sampler=PixelSamplerConfig(2, 16), num_sky_rays=8),
+                         scene["cameras"], scene["images"], scene["masks"], device=dev)
+        trainer = DDFTrainer(tcfg, NeuSkyModel(cfg, device=dev), tree_map(lambda x: x.to(dev), params0),
+                             datamanager=dm)
+        draws = trainer.draw() if draws is None else draws
+        for _, v in tree_items(trainer.ddf_params):
+            v.requires_grad_(True)
+        before = k1_launches()
+        total, _ = trainer.loss(_to(draws, dev), trainer._sky_rays())
+        total.backward()
+        out[dev] = (float(total.detach()), {k: v.grad.detach().cpu() for k, v in tree_items(trainer.ddf_params)},
+                    k1_launches() - before)
+    (lc, gc, _), (lg, gg, kg) = out["cpu"], out["cuda"]
+    worst = max(float((gg[k] - gc[k]).abs().max() / gc[k].abs().max()) for k in gc if gc[k].abs().max() > 0)
+    log(f"Attention/sh DDF trainer step on the card vs the CPU ({card}): loss {lg:.6f} vs {lc:.6f}; worst DDF "
+        f"gradient {worst:.3g} of scale; K1 launches {kg}")
+    check(kg == 0 and abs(lg - lc) <= 1e-4 * abs(lc) and worst <= 5e-3,
+          f"the Attention/sh DDF step on the card differs from the CPU: {lg} vs {lc}, {worst}")
+
+
+def run_ddf_variant(card: str):
+    """Phase 12 (b): the DDF trainer with the Attention / ``sh`` DDF of the
+    canonical configuration (hidden 256, 8 heads, 6 layers) against a
+    frozen scene (seed-0 weights, the converted prior): 8 × 128 vMF rays at
+    κ = 20 and 256 sky rays a step for DDF_VARIANT_STEPS steps, K1 0; then
+    ``ddf_predicted_normals`` of the trained DDF on 1,024 vMF rays on the
+    card against the CPU (5e-3, phase 3's DDF bound: the normal is a
+    normalised gradient of the DDF)."""
+    from neusky_torch.engine.ddf_trainer import DDFTrainer, DDFTrainerConfig
+    from neusky_torch.models.ddf_model import ddf_predicted_normals
+    from neusky_torch.sampling.ddf_sampler import vmf_ddf_samples
+
+    cfg = ddf_variant(neusky_model_config(8, 2))
+    f = cfg.ddf.field
+    model = NeuSkyModel(cfg, device="cuda")
+    params = load_illumination_prior(model.init(torch.Generator(device="cuda").manual_seed(0)), cfg)
+    scene = generate_synthetic_scene(SyntheticSceneConfig(num_cameras=8, width=64, height=64))
+    dm = DataManager(DataManagerConfig(pixel_sampler=PixelSamplerConfig(images_per_batch=8, rays_per_image=128),
+                                       num_sky_rays=256), scene["cameras"], scene["images"], scene["masks"],
+                     device="cuda")
+    trainer = DDFTrainer(DDFTrainerConfig(max_num_iterations=DDF_VARIANT_STEPS, steps_per_log=1), model, params,
+                         datamanager=dm)
+    start = {k: v.detach().clone() for k, v in tree_items(trainer.ddf_params)}
+    times = []
+    k1.launches[k1.KERNEL_NAME] = 0
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(DDF_VARIANT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.run(1)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches, peak = k1_launches(), torch.cuda.max_memory_allocated() / 2**30
+    hist = trainer.history
+    check(all(math.isfinite(v) for r in hist for v in r.values()), f"Attention/sh DDF: non-finite {hist[-1]}")
+    moved = any(not torch.equal(start[k], v.detach()) for k, v in tree_items(trainer.ddf_params))
+    check(launches == 0 and moved, f"Attention/sh DDF: K1 launches {launches}, DDF moved {moved}")
+    log(f"Attention/sh DDF trainer ({card}): conditioning {f.conditioning}, {f.hidden_features} hidden, "
+        f"{f.num_attention_heads} heads, {f.num_attention_layers} layers; {DDF_VARIANT_STEPS} steps, median "
+        f"{float(np.median(times)) * 1e3:.3f} ms a step (first {times[0] * 1e3:.3f} ms), peak {peak:.3f} GiB; K1 "
+        f"launches {launches}; depth PSNR {hist[0]['depth_psnr']:.4f} -> {hist[-1]['depth_psnr']:.4f}")
+
+    bundle = vmf_ddf_samples(trainer.config.sampler, trainer.draw()["vmf"], ddf_sphere_radius=cfg.ddf_radius)
+    o, d = bundle.origins, bundle.directions
+    n_card, secs, _ = measured(lambda: ddf_predicted_normals(model.ddf, trainer.ddf_params, o, d))
+    cpu_model = NeuSkyModel(cfg, device="cpu")
+    n_cpu = ddf_predicted_normals(cpu_model.ddf, tree_map(lambda t: t.detach().cpu(), trainer.ddf_params),
+                                  o.cpu(), d.cpu())
+    err = float((n_card.cpu() - n_cpu).abs().max())
+    unit = float((torch.linalg.norm(n_card, dim=-1) - 1.0).abs().max())
+    log(f"ddf_predicted_normals on {o.shape[0]} rays ({card}): {secs * 1e3:.3f} ms; card vs CPU max |diff| {err:.3g}, "
+        f"unit norm to {unit:.3g}")
+    check(o.shape[0] == 1024 and err <= 5e-3 and unit <= 1e-4, f"normals on the card differ from the CPU: {err}")
+
+
+def run_reni_variants(card: str):
+    """Phase 12 (c): the RENI trainer with the FiLM and the Concat decoder
+    at the ``RENIFieldConfig`` widths (latent 100; FiLM-SIREN 9 × 128 with
+    a 5 × 128 mapping network; SIREN 9 × 128), only ``conditioning``
+    changed, on 16 skies at 64 px, 2,048 pixels a step: a first chunk of
+    RENI_VARIANT_STEPS steps, then RENI_VARIANT_STEPS timed; K1 0, finite
+    losses, the decoder moves."""
+    from neusky_torch.data.sky_generator import generate_sky_corpus
+    from neusky_torch.engine.reni_trainer import RENITrainer, RENITrainerConfig
+
+    corpus = generate_sky_corpus(16, width=64, seed=3)
+    for cond in ("FiLM", "Concat"):
+        tcfg = RENITrainerConfig(field=dataclasses.replace(RENITrainerConfig().field, conditioning=cond),
+                                 steps_per_call=RENI_VARIANT_STEPS)
+        trainer = RENITrainer(tcfg, corpus, device="cuda")
+        start = {k: v.detach().clone() for k, v in tree_items(trainer.params["decoder"])}
+        trainer.run(RENI_VARIANT_STEPS)
+        torch.cuda.reset_peak_memory_stats()
+        hist, secs, launches = counted(lambda: trainer.run(RENI_VARIANT_STEPS))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        rec = hist[-1]
+        moved = any(not torch.equal(start[k], v.detach()) for k, v in tree_items(trainer.params["decoder"]))
+        n_params = sum(v.numel() for _, v in tree_items(trainer.params["decoder"]))
+        log(f"RENI {cond} decoder ({card}): {n_params} decoder parameters; {RENI_VARIANT_STEPS} steps of 2048 pixels "
+            f"in {secs * 1e3:.3f} ms ({secs / RENI_VARIANT_STEPS * 1e3:.3f} ms a step, after a first chunk), peak "
+            f"{peak:.3f} GiB; K1 launches {launches}; recon {rec['recon']:.5f}, kl {rec['kl']:.5f}")
+        check(launches == 0 and moved and all(math.isfinite(rec[k]) for k in ("recon", "kl", "total")),
+              f"RENI {cond}: K1 {launches}, decoder moved {moved}, {rec}")
+
+
+def run_alternative_fields(card: str):
+    """Phase 12 (d): the SH (4 levels), SG (42 lobes: the order-2
+    icosphere; the default 24 has no field, in JAX as here) and envmap
+    (64 × 128) sky fields and the icosphere encoding (4 levels of 2
+    features, orders 1–4, 3 neighbours) on the card against the CPU, at the
+    492 light directions × 8 latents: each latent shared by all directions,
+    and per direction with per-direction rotations and scales; to 1e-5 of
+    scale (1e-4 for the envmap, whose bilinear weights come from arccos and
+    arctan2)."""
+    from neusky_torch.core.spherical import icosphere_vertices
+    from neusky_torch.fields import illumination_alternatives as alt
+    from neusky_torch.ops.icosphere_encoding import IcosphereEncoding, IcosphereEncodingConfig
+    from neusky_torch.sampling.illumination import icosphere_order_for
+
+    g = torch.Generator().manual_seed(7)
+    dirs = torch.from_numpy(icosphere_vertices(icosphere_order_for(SKY_DIRECTIONS)))
+    check(dirs.shape[0] == SKY_DIRECTIONS, f"{dirs.shape[0]} light directions")
+    m = SKY_DIRECTIONS * SKY_LATENTS
+    rot = torch.linalg.qr(torch.randn((m, 3, 3), generator=g))[0]
+    scale = 1.0 + 0.1 * torch.randn((m,), generator=g)
+    fields = {"sh": (alt.SphericalHarmonicIlluminationField(), (16, 3)),
+              "sg": (alt.SphericalGaussianField(sg_num=42), (42, 3)),
+              "envmap": (alt.EnvironmentMapField(), (3, 64, 128))}
+    report, walls = {}, {}
+    for name, (field, shape) in fields.items():
+        lat = 0.3 * torch.randn((SKY_LATENTS, *shape), generator=g)
+        per_dir = lat.repeat_interleave(SKY_DIRECTIONS, dim=0)
+        all_dirs = dirs.repeat(SKY_LATENTS, 1)
+
+        def run(dev):
+            shared = torch.cat([field.unnormalise(field(dirs.to(dev), lat[i].to(dev))["rgb"])
+                                for i in range(SKY_LATENTS)])
+            batched = field.unnormalise(field(all_dirs.to(dev), per_dir.to(dev), scale.to(dev), rot.to(dev))["rgb"])
+            return torch.cat([shared, batched]).cpu()
+
+        (got, walls[name], launches), want = counted(lambda: run("cuda")), run("cpu")
+        report[name] = float((got - want).abs().max() / want.abs().max())
+        check(launches == 0 and report[name] <= (1e-4 if name == "envmap" else 1e-5) and bool(torch.isfinite(got).all()),
+              f"{name} sky field on the card differs from the CPU: {report[name]}")
+    enc = IcosphereEncoding(IcosphereEncodingConfig())
+    tables = enc.init(g, "cpu")
+    d = torch.randn((m, 3), generator=g)
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    got = enc([t.cuda() for t in tables], d.cuda()).cpu()
+    want = enc(tables, d)
+    report["icosphere_encoding"] = float((got - want).abs().max() / want.abs().max())
+    log(f"alternative sky fields and the icosphere encoding on the card vs the CPU ({card}; {SKY_DIRECTIONS} "
+        f"directions x {SKY_LATENTS} latents, {got.shape[1]} encoding features): max error of scale "
+        + json.dumps({k: float(f"{v:.3g}") for k, v in report.items()}) + "; card seconds a field "
+        + json.dumps({k: round(v, 4) for k, v in walls.items()}))
+    check(report["icosphere_encoding"] <= 1e-5, f"icosphere encoding: {report['icosphere_encoding']}")
+
+
+def run_diag_tools(card: str, ckpt: Path, tmp: Path, history):
+    """Phase 12 (e): the six diagnostic tools on small inputs, K1's count
+    zeroed before each and read after: ``analyze_run`` on the split run's
+    records, ``prepare_nerfosr`` (``copy-masks`` and ``validate``) on a
+    fixture, ``probe_sky_fit`` (100 steps), ``diagnose_ckpt`` and
+    ``ab_ddf_encoding --encodings nerf,hash`` (TOOL_STEPS steps an arm) on
+    the split run's checkpoint, ``prior_fit_sanity`` (TOOL_STEPS steps).
+    K1 launches once per differentiated encode: 3 a hash DDF step (the
+    vMF, multi-view and sky-ray queries), 7 a ``prior_fit_sanity`` step,
+    0 elsewhere."""
+    from neusky_torch.data.fixtures import make_nerfosr_fixture
+    from neusky_torch.tools import (
+        ab_ddf_encoding, analyze_run, diagnose_ckpt, prepare_nerfosr, prior_fit_sanity, probe_sky_fit,
+    )
+
+    walls, k1s = {}, {}
+
+    def tool(name, fn):
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            out, walls[name], k1s[name] = counted(fn)
+        return out, text.getvalue()
+
+    runlog = tmp / "split_run.jsonl"
+    runlog.write_text("".join(json.dumps({k: r[k] for k in ("step", "psnr", "ddf_depth_psnr", "s_val", "total_loss")})
+                              + "\n" for r in history))
+    _, text = tool("analyze_run", lambda: analyze_run.main([str(runlog), str(runlog)]))
+    check(f"final: step {history[-1]['step']}," in text, f"analyze_run printed {text[-300:]}")
+
+    data = tmp / "osr"
+    make_nerfosr_fixture(data, num_sessions=2, train_per_session=2, width=16, height=12)
+    masks = tmp / "masks" / "lk2"
+    for split in ("train", "val", "test"):
+        (masks / split / "cityscapes_mask").mkdir(parents=True)
+        (masks / split / "cityscapes_mask" / "extra.png").write_bytes(b"")
+    copied, _ = tool("prepare_nerfosr copy-masks",
+                     lambda: prepare_nerfosr.main(["copy-masks", "lk2", str(tmp / "masks"), str(data)]))
+    report, _ = tool("prepare_nerfosr validate", lambda: prepare_nerfosr.main(["validate", "lk2", str(data)]))
+    check(copied == {"train": 1, "validation": 1, "test": 1} and report["ok"], f"prepare_nerfosr: {copied} {report}")
+
+    probe, _ = tool("probe_sky_fit", lambda: probe_sky_fit.main(["--steps", "100"]))
+    check(probe[-1]["step"] == 100 and probe[-1]["loss"] < probe[0]["loss_init"], f"probe_sky_fit: {probe}")
+
+    diag, _ = tool("diagnose_ckpt", lambda: diagnose_ckpt.main([str(ckpt)]))
+    check(len(diag) == 4 and math.isfinite(diag[3]["psnr"]) and math.isfinite(diag[0]["radius_est_mean"]),
+          f"diagnose_ckpt: {diag}")
+
+    fit, _ = tool("prior_fit_sanity", lambda: prior_fit_sanity.main([str(TOOL_STEPS), "2"]))
+    check(math.isfinite(fit[-1]["final_image_psnr"]) and k1s["prior_fit_sanity"] == 7 * TOOL_STEPS,
+          f"prior_fit_sanity: K1 {k1s['prior_fit_sanity']}, {fit[-1]}")
+
+    arm_k1 = {}
+
+    def count_arm(enc, trainer):
+        run = trainer.run
+
+        def counted_run(*a, **kw):
+            before = k1_launches()
+            out = run(*a, **kw)
+            torch.cuda.synchronize()
+            arm_k1[enc] = k1_launches() - before
+            return out
+
+        trainer.run = counted_run
+
+    ab, _ = tool("ab_ddf_encoding", lambda: ab_ddf_encoding.main(
+        ["--ckpt", str(ckpt), "--steps", str(TOOL_STEPS), "--log-every", "2", "--out", str(tmp / "ab.jsonl"),
+         "--encodings", "nerf,hash"], on_trainer=count_arm))
+    done = {r["arm"]: r for r in ab if r.get("event") == "done"}
+    check(arm_k1 == {"nerf": 0, "hash": 3 * TOOL_STEPS}
+          and all(math.isfinite(r["final_depth_psnr"]) for r in done.values()),
+          f"ab_ddf_encoding: K1 launches by arm {arm_k1}, {done}")
+    others = {k: v for k, v in k1s.items() if k not in ("prior_fit_sanity", "ab_ddf_encoding")}
+    check(all(v == 0 for v in others.values()), f"K1 launched in a tool that trains nothing: {others}")
+    log(f"diagnostic tools ({card}): wall seconds " + json.dumps({k: round(v, 3) for k, v in walls.items()})
+        + "; K1 launches " + json.dumps(k1s) + " (ab_ddf_encoding by arm " + json.dumps(arm_k1) + ")")
+    log("diagnose_ckpt records " + json.dumps(diag))
+    log("ab_ddf_encoding ends " + json.dumps(list(done.values())) + "; prior_fit_sanity end " + json.dumps(fit[-1])
+        + "; probe_sky_fit end " + json.dumps(probe[-1]))
+
+
+def run_variants_path(card: str, fused_a):
+    """Phase 12: (a) the split step at full width in bench's configuration
+    (a), beside phase 10's fused (a) from this call, then a split-vs-fused
+    step on the card; (b) the Attention / ``sh`` DDF; (c) the RENI FiLM and
+    Concat decoders; (d) the alternative sky fields and the icosphere
+    encoding; (e) the six diagnostic tools."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        split = run_bench_config("split (a)", BENCH_KNOBS, 0, card, split=True, save_to=tmp / "split_ckpt")
+        check(split["k1_per_step"] == fused_a["k1_per_step"] == 7,
+              f"K1 a step: split {split['k1_per_step']}, fused {fused_a['k1_per_step']}")
+        keys = ("steady_ms", "busy_share", "device_ms", "peak_gib", "k1_per_step", "k1_ms_per_step")
+        log("split step vs fused step, bench (a) " + json.dumps(
+            {r["label"]: {k: r[k] for k in keys} for r in (fused_a, split)}) + f" ({card})")
+        check_split_vs_fused_on_card(card)
+        run_ddf_variant(card)
+        check_ddf_variant_cuda_vs_cpu(card)
+        run_reni_variants(card)
+        run_alternative_fields(card)
+        run_diag_tools(card, tmp / "split_ckpt", tmp, split["history"])
+    log(f"phase 12 took {time.perf_counter() - t0:.3f} s")
+    return split
+
+
+def split_ab() -> int:
+    """The split step against the fused step in turns in one process:
+    bench's configuration (a) trained fused, split, split, fused, each
+    BENCH_WARMUP + SPLIT_AB_STEPS steps with K1 counted every step, then a
+    profiled step.  Prints each run's steady ms a step, device busy time
+    and share, peak memory and K1 launches a step as one JSON line, then
+    the card's ``nvidia-smi`` name and power limit.
+
+        python3 -c 'import chip_smoke, sys; sys.exit(chip_smoke.split_ab())'
+    """
+    if not torch.cuda.is_available():
+        print("split_ab: CUDA is not available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = nvidia_smi_line()
+    build_all()
+    keys = ("label", "steady_ms", "busy_share", "device_ms", "peak_gib", "k1_per_step")
+    runs = []
+    for i, (label, split) in enumerate((("fused", False), ("split", True), ("split", True), ("fused", False))):
+        r = run_bench_config(f"{label} (a) #{i}", BENCH_KNOBS, 0, card, split=split, steps=SPLIT_AB_STEPS)
+        runs.append({k: r[k] for k in keys})
+    print(json.dumps(runs))
+    print(card)
+    return 0
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1617,12 +2021,16 @@ def main() -> int:
     log(f"phase 9 took {time.perf_counter() - t9:.3f} s; the script so far {time.perf_counter() - t_start:.3f} s")
     bench = run_bench_path(card)
     run_tools_path(card)
+    split = run_variants_path(card, bench[0])
     joint_k1 = {k: sum(r[k] for r in sites) for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
     log(f"phase 5's joint step K1 (unfused, float32 mapping): {main_launches} launches in {STEPS} steps, "
         + json.dumps(joint_k1) + " ms a step")
-    # the kernels line: K1 per step of this slice's main path, (b), on the
-    # inputs one of its steps gave K1 (the fused pass's shapes)
-    main_path = bench[1]
+    log(f"phase 10's (b) K1: {bench[1]['k1_launches']} launches in {BENCH_WARMUP + BENCH_STEPS} steps, "
+        + json.dumps({k: bench[1][k] for k in ("k1_ms_per_step", "k1_bound_ms_per_step", "k1_index_add_ms_per_step")})
+        + " a step, shapes " + json.dumps([[r["L"], r["M"]] for r in bench[1]["sites"]]))
+    # the kernels line: K1 per step of the main path, the split
+    # step in bench's configuration (a), on the inputs one of its steps gave K1
+    main_path = split
     sites = main_path["sites"]
     per_step = lambda key: sum(r[key] * r["launches_per_step"] for r in sites)  # noqa: E731
     kernels = [{
@@ -1632,8 +2040,8 @@ def main() -> int:
         "replaces": "neusky_tpu/ops/hashgrid_pallas.py:47",
         "launches": main_path["k1_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in sites),
-        # times are per (b) training step: the sum over its launches, on the
-        # inputs one step gave them
+        # times are per split training step: the sum over its launches, on
+        # the inputs one step gave them
         "ms": per_step("ms"),
         "plain_ms": per_step("plain_ms"),
         "bound_ms": per_step("bound_ms"),

@@ -1,8 +1,8 @@
 """Standalone DDF recipe (mirror of ``neusky_tpu/configs/ddf_config.py``):
 20,001 iterations, vMF sampler 8×128 rays, FiLM conditioning with the hash
 position encoding, sigmoid termination output; it trains the DDF against
-a frozen NeuSky checkpoint used as the ground truth.  Its trainer (the DDF
-trainer) is not ported yet: ``cli train ddf`` raises."""
+a frozen NeuSky checkpoint used as the ground truth
+(``engine/ddf_trainer.py``, ``cli train ddf``)."""
 
 from __future__ import annotations
 

@@ -20,7 +20,7 @@ from neusky_torch.engine.eval_loop import eval_image_metrics, fit_eval_latents
 from neusky_torch.engine.eval_panels import image_metrics_and_panels
 from neusky_torch.models.neusky import NeuSkyModel
 from neusky_torch.models.pipeline import PipelineConfig
-from neusky_torch.parallel.mesh import make_train_step
+from neusky_torch.parallel.mesh import make_train_step, make_train_step_split
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,7 +32,9 @@ class TrainerConfig:
     output_dir: str = "outputs/run"
     seed: int = 42
     use_split_step: bool = False
-    """The JAX step split into three executables; not ported (raises)."""
+    """Take the scene gradient and the DDF-fit gradient in two passes and
+    sum them before one update (``make_train_step_split``): the same step
+    at a lower peak memory."""
 
 
 class Trainer:
@@ -45,8 +47,6 @@ class Trainer:
         optimizer_groups: Optional[Dict[str, opt_mod.OptimizerGroupConfig]] = None,
         device="cuda",
     ):
-        if config.use_split_step:
-            raise NotImplementedError("use_split_step (the three-executable JAX step) is not ported")
         self.device = resolve_device(device)
         if model.device != self.device or datamanager.device != self.device:
             raise ValueError("model, datamanager and trainer must share one device")
@@ -60,7 +60,8 @@ class Trainer:
         self.params = load_illumination_prior(self.params, model.config)
         groups = optimizer_groups or opt_mod.default_neusky_optimizer_groups(config.max_num_iterations)
         self.optimizer = opt_mod.GroupedAdam(self.params, groups)
-        self.train_step = make_train_step(model, pipeline_config, self.optimizer)
+        make_step = make_train_step_split if config.use_split_step else make_train_step
+        self.train_step = make_step(model, pipeline_config, self.optimizer)
         self.step = 0
         self.history: list = []
         self.writer = None

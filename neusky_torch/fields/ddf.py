@@ -3,10 +3,13 @@ termination distance from the bounding sphere, per inward direction.
 
 Inputs are sphere points and directions already rotated into each point's
 local frame (``models/ddf_model.py``).  Position and direction encodings:
-``nerf`` (2 frequencies, the canonical one), ``hash`` or ``none``.
-Conditioning: ``FiLM`` (FiLM-SIREN with the directions as input and the
-positions driving the mapping network, the canonical one) or ``Concat``
-(SIREN on [directions, positions]).  Heads: ``ddf`` (one distance) or
+``nerf`` (2 frequencies, the canonical one), ``hash``, ``sh`` (real
+spherical harmonics of 4 levels) or ``none``; each keeps the raw input in
+front.  Conditioning: ``FiLM`` (FiLM-SIREN with the directions as input and
+the positions driving the mapping network, the canonical one), ``Concat``
+(SIREN on [directions, positions]) or ``Attention`` (the transformer
+decoder, ``nets/transformer.py``: the directions are the query, the
+positions one key/value token).  Heads: ``ddf`` (one distance) or
 ``pddf`` (a softmax mixture of Dirac distances, with the reference's
 activation applied twice).  The output is scaled to 2·ddf_radius.
 
@@ -20,9 +23,6 @@ the FiLM layers' products in bf16, ``use_bf16_mapping`` the mapping
 network's products and its (frequencies, phases) outputs, and
 ``film_per_layer_heads`` gives each FiLM layer its own mapping head.
 
-Not ported yet: ``Attention`` conditioning and the ``sh`` encoding; they
-raise ``NotImplementedError``.
-
 Parameters (flax tree): ``{"net": {...}, "pos_hash_table": [L, F, T],
 "dir_hash_table": [L, F, T]}``, the tables present with their encodings.
 """
@@ -34,7 +34,8 @@ import dataclasses
 import torch
 
 from neusky_torch.nets.siren import FiLMSiren, Siren
-from neusky_torch.ops.encodings import nerf_encoding, nerf_encoding_dim
+from neusky_torch.nets.transformer import TransformerDecoder
+from neusky_torch.ops.encodings import nerf_encoding, nerf_encoding_dim, sh_encoding
 from neusky_torch.ops.hashgrid import HashGridConfig, HashGridEncoding
 
 _DDF_HASH = HashGridConfig(num_levels=16, features_per_level=2, log2_hashmap_size=19, base_res=16, max_res=2048)
@@ -42,10 +43,10 @@ _DDF_HASH = HashGridConfig(num_levels=16, features_per_level=2, log2_hashmap_siz
 
 @dataclasses.dataclass(frozen=True)
 class DDFFieldConfig:
-    position_encoding_type: str = "hash"  # hash | nerf | none (sh: not ported)
+    position_encoding_type: str = "hash"  # hash | nerf | sh | none
     direction_encoding_type: str = "nerf"
     hash: HashGridConfig = _DDF_HASH
-    conditioning: str = "FiLM"  # FiLM | Concat (Attention: not ported)
+    conditioning: str = "FiLM"  # FiLM | Concat | Attention
     termination_output_activation: str = "sigmoid"  # sigmoid | tanh | relu
     probability_of_hit_output_activation: str = "sigmoid"
     hidden_layers: int = 5
@@ -75,11 +76,6 @@ class DirectionalDistanceField:
 
     def __init__(self, config: DDFFieldConfig, ddf_radius: float = 1.0):
         c = config
-        if c.conditioning not in ("FiLM", "Concat"):
-            raise NotImplementedError(f"DDF conditioning {c.conditioning!r} is not ported yet")
-        for enc in (c.position_encoding_type, c.direction_encoding_type):
-            if enc not in ("hash", "nerf", "none"):
-                raise NotImplementedError(f"DDF encoding {enc!r} is not ported yet")
         self.config = config
         self.ddf_radius = ddf_radius
         self.pos_hash = HashGridEncoding(c.hash) if c.position_encoding_type == "hash" else None
@@ -91,16 +87,23 @@ class DirectionalDistanceField:
         if c.conditioning == "Concat":
             self.net = Siren(c.hidden_layers, c.hidden_features, out_features, outermost_linear=True,
                              first_omega_0=c.first_omega_0, hidden_omega_0=c.hidden_omega_0)
-        else:
+        elif c.conditioning == "FiLM":
             self.net = FiLMSiren(c.hidden_layers, c.hidden_features, c.mapping_layers, c.mapping_features,
                                  out_features, bf16=c.use_bf16_compute, mapping_bf16=c.use_bf16_mapping,
                                  per_layer_heads=c.film_per_layer_heads)
+        elif c.conditioning == "Attention":
+            self.net = TransformerDecoder(c.hidden_features, c.num_attention_heads, c.num_attention_layers,
+                                          out_features)
+        else:
+            raise ValueError(c.conditioning)
 
     def _enc_dim(self, kind: str) -> int:
         if kind == "hash":
             return 3 + self.config.hash.out_dim
         if kind == "nerf":
             return 3 + nerf_encoding_dim(3, 2)
+        if kind == "sh":
+            return 3 + 16
         return 3
 
     def init(self, generator, device):
@@ -124,6 +127,8 @@ class DirectionalDistanceField:
             return torch.cat([x, enc(table, x01, custom_take=True)], dim=-1)
         if kind == "nerf":
             return torch.cat([x, nerf_encoding(x, 2, 0.0, 2.0)], dim=-1)
+        if kind == "sh":
+            return torch.cat([x, sh_encoding(x, 4)], dim=-1)
         return x
 
     def __call__(self, p, origins: torch.Tensor, directions: torch.Tensor) -> dict:
@@ -138,7 +143,7 @@ class DirectionalDistanceField:
         )
         if c.conditioning == "Concat":
             raw = self.net(p["net"], torch.cat([dirs, pos], dim=-1))
-        else:
+        else:  # FiLM and Attention: (x, conditioning)
             raw = self.net(p["net"], dirs, pos)
         act = _ACTIVATIONS[c.termination_output_activation]
         if c.ddf_type == "pddf":

@@ -1,11 +1,16 @@
 """RENI++ illumination prior (mirror of ``neusky_tpu/fields/reni.py``):
-SO(2)-invariant featurisation of (direction, latent set) and the attention
-decoder, in a normalised log-HDR domain.
+SO(2)-invariant featurisation of (direction, latent set) and a decoder, in
+a normalised log-HDR domain.  Decoders (``conditioning``): ``Attention``
+(the canonical one: the direction features query the latent tokens),
+``FiLM`` (a FiLM-SIREN on the direction features, its mapping network
+driven by the flattened latent tokens) and ``Concat`` (a SIREN on the
+direction features and the flattened tokens).
 
 The decoder is frozen in NeuSky (``fixed_decoder=True``): its parameters
 get ``requires_grad_(False)`` while latents and scales keep gradients.
-Parameters (flax tree): ``{"params": {"decoder": {"query_embed",
-"kv_embed", "block_{i}", "LayerNorm_0", "out"}}}``.
+Parameters (flax tree): ``{"params": {"decoder": ...}}`` with
+``query_embed``, ``kv_embed``, ``block_{i}``, ``LayerNorm_0``, ``out``
+(Attention), ``FiLMSiren_0`` (FiLM) or ``Siren_0`` (Concat).
 """
 
 from __future__ import annotations
@@ -15,12 +20,8 @@ from typing import Optional
 
 import torch
 
-from neusky_torch.nets.mlp import dense, init_dense
-from neusky_torch.nets.transformer import (
-    cross_attention_block,
-    init_cross_attention_block,
-    layer_norm,
-)
+from neusky_torch.nets.siren import FiLMSiren, Siren
+from neusky_torch.nets.transformer import TransformerDecoder
 from neusky_torch.ops.encodings import nerf_encoding
 
 
@@ -69,24 +70,29 @@ class RENIField:
     """``apply(params, directions, latents, scale, rotation)`` → {"rgb"}."""
 
     def __init__(self, config: RENIFieldConfig):
-        if config.conditioning != "Attention":
-            raise NotImplementedError(
-                f"RENI conditioning {config.conditioning!r} is not ported yet"
-            )
+        c = config
         self.config = config
+        if c.conditioning == "Attention":
+            self.decoder = TransformerDecoder(c.hidden_features, c.num_attention_heads, c.num_attention_layers, 3)
+            self._name = None
+        elif c.conditioning == "FiLM":
+            self.decoder = FiLMSiren(c.hidden_layers, c.hidden_features, c.mapping_layers, c.mapping_features, 3)
+            self._name = "FiLMSiren_0"
+        elif c.conditioning == "Concat":
+            self.decoder = Siren(c.hidden_layers, c.hidden_features, 3, outermost_linear=c.last_layer_linear)
+            self._name = "Siren_0"
+        else:
+            raise ValueError(c.conditioning)
 
     def init(self, generator, device):
         c = self.config
-        h = c.hidden_features
         dir_dim = 2 + (2 * 2 * 2 if c.positional_encoding == "NeRF" else 0)
-        dec = {
-            "query_embed": init_dense(dir_dim, h, generator, device),
-            "kv_embed": init_dense(4, h, generator, device),
-        }
-        for i in range(c.num_attention_layers):
-            dec[f"block_{i}"] = init_cross_attention_block(h, c.num_attention_heads, generator, device)
-        dec["LayerNorm_0"] = {"scale": torch.ones(h, device=device), "bias": torch.zeros(h, device=device)}
-        dec["out"] = init_dense(h, 3, generator, device)
+        if c.conditioning == "Attention":
+            dec = self.decoder.init(dir_dim, 4, generator, device)
+        elif c.conditioning == "FiLM":
+            dec = {self._name: self.decoder.init(dir_dim, 4 * c.latent_dim, generator, device)}
+        else:
+            dec = {self._name: self.decoder.init(dir_dim + 4 * c.latent_dim, generator, device)}
         return {"params": {"decoder": dec}}
 
     def apply(
@@ -114,11 +120,14 @@ class RENIField:
         if c.positional_encoding == "NeRF":
             dir_feats = torch.cat([dir_feats, nerf_encoding(dir_feats, 2, 0.0, 2.0)], dim=-1)
         p = params["params"]["decoder"]
-        q = dense(p["query_embed"], dir_feats)[:, None, :]
-        kv = dense(p["kv_embed"], latent_tokens)
-        for i in range(c.num_attention_layers):
-            q = cross_attention_block(p[f"block_{i}"], q, kv)
-        out = dense(p["out"], layer_norm(p["LayerNorm_0"], q[:, 0, :]))
+        if c.conditioning == "Attention":
+            out = self.decoder(p, dir_feats, latent_tokens)
+        else:
+            flat_latents = latent_tokens.reshape(latent_tokens.shape[0], -1)
+            if c.conditioning == "FiLM":
+                out = self.decoder(p[self._name], dir_feats, flat_latents)
+            else:
+                out = self.decoder(p[self._name], torch.cat([dir_feats, flat_latents], dim=-1))
         if c.output_activation == "tanh":
             out = torch.tanh(out)
         return {"rgb": out}

@@ -7,8 +7,8 @@ the depth and level-set terms, two auxiliary query sets: the multi-view
 loss (from a random second sphere point, the predicted distance toward a
 known surface point may not exceed the true one) and the sky-ray loss
 (rays known to hit the sky give exact distances back to the camera).
-
-Not ported yet: ``ddf_predicted_normals`` (no training path calls it).
+``ddf_predicted_normals`` reads surface normals off the field's gradient
+(no training path calls it).
 """
 
 from __future__ import annotations
@@ -103,6 +103,18 @@ def scene_center_distance_weight(config: DDFModelConfig, origins: torch.Tensor, 
     xyz = origins if config.scene_center_weight_include_z else origins[..., :2]
     d = torch.linalg.norm(xyz, dim=-1) / ddf_radius
     return 1.0 - d**config.scene_center_weight_exp
+
+
+def ddf_predicted_normals(model: DDFModel, params, origins: torch.Tensor, directions_world: torch.Tensor) -> torch.Tensor:
+    """Surface normals from ∂(Σ termination distance)/∂origins through the
+    localised query: the gradient normalised (``+1e-12`` under the root)
+    and oriented against the ray.  ``[M, 3]``; no graph is kept."""
+    with torch.enable_grad():
+        o = origins.detach().requires_grad_(True)
+        dist = model.apply(params, o, directions_world)["expected_termination_dist"].sum()
+        (grads,) = torch.autograd.grad(dist, o)
+    n_hat = grads / torch.sqrt(torch.sum(grads**2, dim=-1, keepdim=True) + 1e-12)
+    return torch.sign(-torch.sum(n_hat * directions_world, dim=-1, keepdim=True)) * n_hat
 
 
 def ddf_train_outputs(

@@ -1,11 +1,12 @@
-"""Pre-LN cross-attention block (mirror of
-``neusky_tpu/nets/transformer.py::CrossAttentionBlock``), written as plain
-matmuls and a softmax like the JAX code.
+"""Pre-LN cross-attention block and the transformer decoder built on it
+(mirror of ``neusky_tpu/nets/transformer.py``), written as plain matmuls
+and a softmax like the JAX code.
 
 Parameters follow the flax tree: ``LayerNorm_{0,1,2}`` (scale, bias),
 ``MultiHeadDotProductAttention_0`` with ``query``/``key``/``value`` kernels
 [in, heads, head_dim] and ``out`` kernel [heads, head_dim, out], and the
-GELU feed-forward ``Dense_0`` / ``Dense_1``.
+GELU feed-forward ``Dense_0`` / ``Dense_1``.  The decoder adds
+``query_embed``, ``kv_embed``, ``block_{i}``, ``LayerNorm_0`` and ``out``.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from neusky_torch.nets.mlp import dense, lecun_normal
+from neusky_torch.nets.mlp import dense, init_dense, lecun_normal
 
 LN_EPS = 1e-6  # flax LayerNorm default
 
@@ -86,3 +87,35 @@ def init_cross_attention_block(hidden: int, num_heads: int, generator, device):
         "Dense_1": {"kernel": lecun_normal((4 * hidden, hidden), generator, device),
                     "bias": torch.zeros(hidden, device=device)},
     }
+
+
+class TransformerDecoder:
+    """Queries from the per-element input ``x``, keys and values from the
+    conditioning (a 2-D ``[N, cond_dim]`` input is one token, a 3-D
+    ``[N, T, cond_dim]`` input T tokens), ``num_layers`` cross-attention
+    blocks, a final LayerNorm and the ``out`` dense: ``__call__(p, x,
+    conditioning)`` → ``[N, out_dim]``."""
+
+    def __init__(self, hidden_features: int, num_heads: int, num_layers: int, out_dim: int):
+        self.hidden_features = hidden_features
+        self.num_heads = num_heads
+        self.num_layers = num_layers
+        self.out_dim = out_dim
+
+    def init(self, in_dim: int, conditioning_dim: int, generator, device):
+        h = self.hidden_features
+        p = {"query_embed": init_dense(in_dim, h, generator, device),
+             "kv_embed": init_dense(conditioning_dim, h, generator, device)}
+        for i in range(self.num_layers):
+            p[f"block_{i}"] = init_cross_attention_block(h, self.num_heads, generator, device)
+        p["LayerNorm_0"] = {"scale": torch.ones(h, device=device), "bias": torch.zeros(h, device=device)}
+        p["out"] = init_dense(h, self.out_dim, generator, device)
+        return p
+
+    def __call__(self, p, x: torch.Tensor, conditioning: torch.Tensor) -> torch.Tensor:
+        kv = conditioning[..., None, :] if conditioning.dim() == x.dim() else conditioning
+        q = dense(p["query_embed"], x)[..., None, :]
+        kv = dense(p["kv_embed"], kv)
+        for i in range(self.num_layers):
+            q = cross_attention_block(p[f"block_{i}"], q, kv)
+        return dense(p["out"], layer_norm(p["LayerNorm_0"], q)[..., 0, :])

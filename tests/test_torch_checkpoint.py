@@ -21,6 +21,7 @@ from neusky_torch.data.datamanager import DataManager, DataManagerConfig
 from neusky_torch.data.pixel_sampler import PixelSamplerConfig
 from neusky_torch.data.synthetic import SyntheticSceneConfig, generate_synthetic_scene
 from neusky_torch.engine import checkpoint as t_ckpt
+from neusky_torch.engine import trainer as trainer_mod
 from neusky_torch.engine.optimizers import GroupedAdam, default_neusky_optimizer_groups
 from neusky_torch.engine.trainer import Trainer, TrainerConfig
 from neusky_torch.engine.writer import Writer
@@ -224,6 +225,17 @@ def test_trainer_saves_evaluates_writes_and_resumes(tmp_path):
             np.testing.assert_allclose(b[k], a[k], rtol=1e-6, err_msg=k)
 
 
-def test_trainer_refuses_the_split_step():
-    with pytest.raises(NotImplementedError, match="use_split_step"):
-        Trainer(TrainerConfig(use_split_step=True), tiny_model(), to_torch_config(PIPE), _datamanager(), device="cpu")
+def test_trainer_refuses_the_split_step(monkeypatch):
+    """Named for the refusal it checked while the split step was not
+    ported.  Now ``use_split_step`` routes the trainer to
+    ``make_train_step_split`` (held to JAX's in
+    ``tests/test_torch_split_step.py``) and its absence to
+    ``make_train_step``: the trainer refuses neither."""
+    made = []
+    for name in ("make_train_step", "make_train_step_split"):
+        monkeypatch.setattr(trainer_mod, name, lambda *a, _name=name: made.append(_name) or _name)
+    for split in (True, False):
+        t = Trainer(TrainerConfig(use_split_step=split), tiny_model(), to_torch_config(PIPE), _datamanager(),
+                    device="cpu")
+        assert t.train_step == made[-1]
+    assert made == ["make_train_step_split", "make_train_step"]
