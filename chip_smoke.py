@@ -121,12 +121,29 @@ Phases (any failure exits non-zero; no phase's failure is passed over):
    ``diagnose_ckpt`` and ``ab_ddf_encoding --encodings nerf,hash`` (on (a)'s
    checkpoint) and ``prior_fit_sanity``, K1 counted around each (3 a hash
    DDF step, 7 a ``prior_fit_sanity`` step, 0 elsewhere);
-13. one JSON line listing every kernel (K1 per step of phase 12's split
+13. the multi-device path in bench's configuration (a) of phase 10: the
+   one-process step on one global batch and one set of draws, then (a) one
+   rank over NCCL, (b) two ranks on the one card over gloo, (c) four ranks,
+   ``data`` × ``dirs`` = 2 × 2, over gloo (127 of the 254 queried
+   directions a rank), (d) (c) over NCCL with a card a rank where there
+   are four cards (logged as not run otherwise), each rank its own process
+   (``neusky_torch.parallel.launch``): each run's check step against the
+   one-process step, both with the visibility queried in chunks of one
+   ray's 127 directions so that every run cuts its DDF calls where one
+   process does (loss 1e-4 relative, rank 0's averaged gradient within
+   phase 3's bounds, its params within 1e-6 but where a gradient within
+   its bound of zero flips the update, every rank's params bitwise
+   equal), then ``Trainer(mesh=)`` for 3 warm-up + 4 steps a rank with K1
+   (7 a step), the DDF's visibility queries (the rank's rays × its share
+   of the directions), steady ms a step, the gradient all-reduce's ms and
+   peak memory logged per rank;
+14. one JSON line listing every kernel (K1 per step of phase 12's split
    step, on its own inputs, with their shapes), the card line, and the
    final ``{"ok": true, "device": ...}`` line.
 
 ``split_ab()`` is a separate command: the split and the fused step in
-turns, more steps each (see its docstring).
+turns, more steps each (see its docstring); ``mesh_path()`` runs phase 13
+alone.
 """
 
 from __future__ import annotations
@@ -152,23 +169,28 @@ import torch
 
 from neusky_torch.configs import env_overrides
 from neusky_torch.configs.neusky_config import neusky_model_config, neusky_pipeline_config
+from neusky_torch.core.spherical import ray_sphere_intersection
 from neusky_torch.data.datamanager import DataManager, DataManagerConfig
 from neusky_torch.data.pixel_sampler import PixelSamplerConfig
 from neusky_torch.data.synthetic import SyntheticSceneConfig, generate_synthetic_scene
 from neusky_torch.engine import metrics
 from neusky_torch.engine.checkpoint import load_illumination_prior, prior_asset_path
-from neusky_torch.engine.optimizers import default_neusky_optimizer_groups
+from neusky_torch.engine.optimizers import GroupedAdam, default_neusky_optimizer_groups
 from neusky_torch.engine.eval_loop import (
     average_eval_metrics, eval_image_metrics, fit_eval_latents, make_render_chunk_fn, render_camera,
 )
 from neusky_torch.engine.trainer import Trainer, TrainerConfig
 from neusky_torch.models.neusky import NeuSkyModel, visibility_query_directions
-from neusky_torch.models.pipeline import PipelineConfig, draw_ddf_fit, train_loss_fn
+from neusky_torch.models.losses import ddf_sky_ray_loss
+from neusky_torch.models.pipeline import PipelineConfig, batch_sky_bundle, draw_ddf_fit, train_loss_fn
 from neusky_torch.ops import hashgrid, hashgrid_cuda as k1
 from neusky_torch.ops.hashgrid import HashGridEncoding
+from neusky_torch.parallel import mesh as mesh_mod
+from neusky_torch.parallel.launch import run_ranks
 from neusky_torch.sampling.ddf_sampler import DDFSamplerConfig
 from neusky_torch.sampling.illumination import IcosahedronSampler
-from neusky_torch.tree import tree_items, tree_map
+from neusky_torch.tree import tree_digest, tree_items, tree_map
+from neusky_torch.utils.profiling import count_visibility_queries
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
@@ -473,16 +495,22 @@ def rounds_cotangent(cfg, key: str) -> bool:
     return False
 
 
-def grad_close(got: torch.Tensor, want: torch.Tensor, rel: float, bf16_cotangent: bool) -> bool:
-    """Every element within ``rel`` of the array's largest.  A gradient whose
-    cotangent both sides round to bfloat16 (:func:`rounds_cotangent`) may
-    besides round to the neighbouring bfloat16 value where the card's and
-    the CPU's float32 sums straddle a rounding boundary: 2⁻⁷ of the element
-    at most (of the term of one use, where several uses add up)."""
+def grad_allowance(want: torch.Tensor, rel: float, bf16_cotangent: bool) -> torch.Tensor:
+    """Each element's allowed error: ``rel`` of the array's largest.  A
+    gradient whose cotangent both sides round to bfloat16
+    (:func:`rounds_cotangent`) may besides round to the neighbouring
+    bfloat16 value where the card's and the CPU's float32 sums straddle a
+    rounding boundary: 2⁻⁷ of the element at most (of the term of one use,
+    where several uses add up)."""
     allow = rel * want.abs().max()
     if bf16_cotangent:
         allow = allow + 2.0**-7 * want.abs()
-    return bool(((got - want).abs() <= allow).all())
+    return allow
+
+
+def grad_close(got: torch.Tensor, want: torch.Tensor, rel: float, bf16_cotangent: bool) -> bool:
+    """Every element within its :func:`grad_allowance`."""
+    return bool(((got - want).abs() <= grad_allowance(want, rel, bf16_cotangent)).all())
 
 
 def check_step_cuda_vs_cpu(joint: bool, knobs=None, sdf_query_chunk: int = 0, variant=None):
@@ -1988,6 +2016,303 @@ def split_ab() -> int:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the multi-device path
+
+
+MESH_WARMUP, MESH_STEPS = 3, 4
+# label → (ranks, dirs, backend): (a) one rank over NCCL; (b) two ranks on
+# the one card over gloo; (c) four, data × dirs = 2 × 2; (d) (c) over NCCL
+# with a card a rank, where there are four
+MESH_RUNS = {"(a)": (1, 1, "nccl"), "(b)": (2, 1, "gloo"), "(c)": (4, 2, "gloo"), "(d)": (4, 2, "nccl")}
+# phase 3's bounds: losses 1e-4, gradients 2e-3 of scale, the DDF's 5e-3
+MESH_GRAD_REL = {"ddf_field": 5e-3}
+
+
+def mesh_setup(device):
+    """(config, pipeline, datamanager) of phase 13: phase 10's (a),
+    ``apply_env_knobs(neusky_model_config(8, 2))`` with
+    ``NEUSKY_BF16_MAPPING=1``, bench's pipeline and data (the synthetic
+    scene, 8 cameras at 64×64, 8 × 128 rays and 256 sky rays a step from
+    the native sampler)."""
+    with knobs_set(BENCH_KNOBS):
+        cfg, pcfg = env_overrides.apply_env_knobs(neusky_model_config(8, 2)), bench_pipeline()
+    scene = generate_synthetic_scene(SyntheticSceneConfig(num_cameras=8, width=64, height=64))
+    dm = DataManager(DataManagerConfig(pixel_sampler=PixelSamplerConfig(8, 128), num_sky_rays=256,
+                                       use_native_sampler=True),
+                     scene["cameras"], scene["images"], scene["masks"], device=device)
+    return cfg, pcfg, dm
+
+
+def mesh_check_config(cfg):
+    """The check step's config: ``cfg`` with the visibility queried in
+    chunks of the directions one rank of the widest ``dirs`` axis takes for
+    one ray (127 of 254).  Every run then cuts its DDF calls where the
+    one-process step does, on the same points in the same order, so the
+    kernel gradient of each call, which a bf16 product rounds to bfloat16
+    once a call (:func:`rounds_cotangent`), is the same in every run, up
+    to the power-of-two scale of a rank's mean."""
+    d = visibility_query_directions(cfg, IcosahedronSampler(cfg.num_illumination_directions).actual_num_directions)
+    dirs = max(r[1] for r in MESH_RUNS.values())
+    check(d % dirs == 0, f"{d} queried directions do not split evenly over {dirs} 'dirs' ranks")
+    return dataclasses.replace(cfg, visibility_query_chunk=d // dirs)
+
+
+def _batch_to(batch, dev):
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def mesh_init(cfg, dev, mesh):
+    """(model, params) of the check step: seed 0 with the converted prior,
+    broadcast from rank 0 on a mesh."""
+    model = NeuSkyModel(cfg, device=dev).set_mesh(mesh)
+    return model, mesh_mod.replicate(load_illumination_prior(model.init(torch.Generator(dev).manual_seed(0)), cfg), mesh)
+
+
+def mesh_sky_rounding(cfg, batch, data: int) -> dict:
+    """For each kernel of a bf16 product of the DDF, u·(|P| + Σ_r |P_r|)
+    with u = 2⁻⁸, bfloat16's unit roundoff: the most by which rounding the
+    sky-ray loss's DDF call moves the check step's gradient on a mesh of
+    ``data`` shards.  One process calls the DDF once on the batch's sky rays
+    and rounds that call's kernel gradient P to bfloat16 once; each rank
+    calls it on its shard and rounds its own P_r (scaled as the ranks'
+    average scales it).  Zero where the calls are the same: ``data`` = 1,
+    or sky rays that do not split evenly and stay whole."""
+    dev = "cuda"
+    model, params = mesh_init(cfg, dev, None)
+    srb = batch_sky_bundle(_batch_to(batch, dev))
+    keys = [k for k, _ in tree_items(params) if k.startswith("ddf_field/") and rounds_cotangent(cfg, k)]
+    leaves = [dict(tree_items(params))[k].requires_grad_() for k in keys]
+    out = {k: torch.zeros_like(t) for k, t in zip(keys, leaves)}
+    s = srb.origins.shape[0]
+    if data == 1 or s % data:
+        return {k: v.cpu() for k, v in out.items()}
+    coef = dict(cfg.ddf.loss_coefficients)["sky_ray_loss"]
+    n = s // data
+    for rows, weight in [(slice(None), 1.0)] + [(slice(r * n, (r + 1) * n), 1.0 / data) for r in range(data)]:
+        o, d = srb.origins[rows], srb.directions[rows]
+        pts = ray_sphere_intersection(o, d, cfg.ddf_radius)
+        sky = model.ddf.apply(params["ddf_field"], pts, -d)["expected_termination_dist"]
+        loss = weight * coef * ddf_sky_ray_loss(sky, torch.linalg.norm(o - pts, dim=-1))
+        for k, g in zip(keys, torch.autograd.grad(loss, leaves)):
+            out[k] += g.abs()
+    return {k: (2.0**-8 * v).cpu() for k, v in out.items()}
+
+
+def mesh_check_step(cfg, pcfg, dev, mesh, batch, draws):
+    """One step of ``make_train_step`` with :func:`mesh_check_config`'s
+    chunks (with ``mesh``: this rank's shard of ``batch``, the global
+    ``draws``) from :func:`mesh_init`'s params → (total loss, params, K1
+    launches, DDF visibility queries)."""
+    model, params = mesh_init(mesh_check_config(cfg), dev, mesh)
+    opt = GroupedAdam(params, default_neusky_optimizer_groups(100001))
+    step_fn = mesh_mod.make_train_step(model, pcfg, opt, mesh)
+    local = mesh_mod.shard_batch(_batch_to(batch, dev), mesh)
+    before = k1_launches()
+    with count_visibility_queries(model) as queries:
+        aux = step_fn(params, local, 0.0, _to(draws, dev))
+    torch.cuda.synchronize(dev)
+    return float(aux["total_loss"]), params, k1_launches() - before, queries[0]
+
+
+def mesh_compare(cfg, params, ref, data: int) -> dict:
+    """Rank 0's averaged gradient and updated params after the check step
+    against the one-process step's (``ref``).  Gradients: every element
+    within phase 3's bound of its array's largest (:func:`grad_allowance`),
+    a bf16 kernel of the DDF besides within the rounding that the mesh
+    moves (``ref["sky_rounding"][data]``, :func:`mesh_sky_rounding`); the
+    reading is the largest error over its allowance.  Params: within 1e-6
+    (and two float32 steps of the value), except where the reference
+    gradient lies within its allowance of zero: Adam's first update is
+    ±lr·sign(g), so such an element may move the other way, as in
+    ``tests/test_torch_slice.py``."""
+    grads = {k: t.grad.detach().cpu() for k, t in tree_items(params) if t.grad is not None}
+    sky = ref["sky_rounding"][data]
+    grad_bad, param_bad, worst, moved = [], [], {}, {}
+    for k, t in tree_items(params):
+        group = k.split("/")[0]
+        got_p, want_p = t.detach().cpu(), ref["params"][k]
+        diff = (got_p - want_p).abs()
+        moved[group] = max(moved.get(group, 0.0), float(diff.max()))
+        ok = diff <= 1e-6 + 2.0**-22 * want_p.abs()
+        want = ref["grads"].get(k)
+        if want is not None and float(want.abs().max()) > 0:
+            bf16_kernel = rounds_cotangent(cfg, k)
+            label = group + (" (bf16 kernels)" if bf16_kernel else "")
+            allow = grad_allowance(want, MESH_GRAD_REL.get(group, 2e-3), bf16_kernel) + sky.get(k, 0.0)
+            ratio = float(((grads[k] - want).abs() / allow).max())
+            worst[label] = max(worst.get(label, 0.0), ratio)
+            if ratio > 1.0:
+                grad_bad.append((k, ratio))
+            ok |= want.abs() <= allow
+        if not bool(ok.all()):
+            param_bad.append((k, float(diff.max())))
+    return dict(grad_bad=grad_bad, grad_worst=worst, param_bad=param_bad, param_worst=moved)
+
+
+def mesh_rank(rank, world_size, init_method, dirs, backend, work):
+    """One rank of phase 13 (run by ``run_ranks``): the check step on the
+    reference's batch and draws (rank 0 holds its gradient and params to
+    the one-process step's, :func:`mesh_compare`), then ``Trainer(mesh=)``
+    on bench's data for MESH_WARMUP + MESH_STEPS steps, K1, the DDF's
+    visibility queries, the step's wall time and the gradient all-reduce's
+    time counted every step → this rank's numbers."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = f"cuda:{rank}" if backend == "nccl" else "cuda"
+    mesh = mesh_mod.make_mesh(world_size, dirs, backend=backend, rank=rank, init_method=init_method, device=dev)
+    cfg, pcfg, dm = mesh_setup(dev)
+    ref = torch.load(Path(work) / "reference.pt", weights_only=False)
+    total, params, check_launches, check_queries = mesh_check_step(cfg, pcfg, dev, mesh, ref["batch"],
+                                                                   ref["draws"])
+    out = {"rank": rank, "check_loss": total, "check_digest": tree_digest(params), "check_launches": check_launches,
+           "check_queries": check_queries}
+    if rank == 0:
+        out.update(mesh_compare(cfg, params, ref, world_size // dirs))
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    trainer = Trainer(TrainerConfig(max_num_iterations=100001, steps_per_log=1, seed=0), NeuSkyModel(cfg, device=dev),
+                      pcfg, dm, optimizer_groups=default_neusky_optimizer_groups(100001), device=dev, mesh=mesh)
+    reduce_s = [0.0]
+    average = mesh_mod.average_grads
+
+    def timed_average(*a, **k):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        r = average(*a, **k)
+        torch.cuda.synchronize(dev)
+        reduce_s[0] += time.perf_counter() - t0
+        return r
+
+    mesh_mod.average_grads = timed_average
+    times, launches, queries, reduce_ms, losses = [], [], [], [], []
+    try:
+        with count_visibility_queries(trainer.model) as q:
+            for _ in range(MESH_WARMUP + MESH_STEPS):
+                before, q[0], reduce_s[0] = k1_launches(), 0, 0.0
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                rec = trainer.run(1)[-1]
+                torch.cuda.synchronize(dev)
+                times.append(time.perf_counter() - t0)
+                launches.append(k1_launches() - before)
+                queries.append(q[0])
+                reduce_ms.append(reduce_s[0] * 1e3)
+                losses.append(rec["total_loss"])
+    finally:
+        mesh_mod.average_grads = average
+    steady = times[MESH_WARMUP:]
+    out.update(
+        digest=tree_digest(trainer.params), launches=launches, queries=queries, losses=losses,
+        step_ms=[t * 1e3 for t in times], steady_ms=float(np.mean(steady)) * 1e3,
+        allreduce_ms=float(np.mean(reduce_ms[MESH_WARMUP:])),
+        peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+        rays=int(mesh_mod.shard_batch(ref["batch"], mesh)["pixel_coords"].shape[0]),
+    )
+    return out
+
+
+def run_mesh_path(card: str):
+    """Phase 13: bench's configuration (a) over a mesh.  The one-process
+    step on one global batch (the native sampler's first) and one set of
+    draws is the reference; then (a) one rank over NCCL, (b) two ranks on
+    the one card over gloo, (c) four, ``data`` × ``dirs`` = 2 × 2, over
+    gloo, and (d) (c) over NCCL with a card a rank where there are four.
+    Each run's check step (:func:`mesh_check_config`'s chunks) must match
+    the reference (loss 1e-4 relative, rank 0's gradient and params by
+    :func:`mesh_compare`, every rank's params bitwise equal), then each
+    rank trains MESH_WARMUP + MESH_STEPS steps of bench's (a) through
+    ``Trainer(mesh=)``: K1 7 times a step on every rank, the DDF's
+    visibility queries the rank's rays × its share of the directions, the
+    params bitwise equal on every rank at the end."""
+    t_phase = time.perf_counter()
+    cfg, pcfg, dm = mesh_setup("cuda")
+    expected = expected_launches_per_step(cfg, pcfg)
+    d_query = visibility_query_directions(cfg, IcosahedronSampler(cfg.num_illumination_directions).actual_num_directions)
+    torch.cuda.empty_cache()
+    results = {}
+    with tempfile.TemporaryDirectory() as work:
+        batch = dm.next_train(0)
+        n_rays = int(batch["pixel_coords"].shape[0])
+        del dm
+        model = NeuSkyModel(cfg, device="cuda")
+        gen = torch.Generator("cuda").manual_seed(4)
+        draws = model.draw(None, gen, n_rays)
+        draws["ddf"] = draw_ddf_fit(model, pcfg, None, gen)
+        sky_rounding = {data: mesh_sky_rounding(cfg, batch, data)
+                        for data in sorted({w // dirs for w, dirs, _ in MESH_RUNS.values()})}
+        total, params, launches, queries = mesh_check_step(cfg, pcfg, "cuda", None, batch, draws)
+        check(launches == expected and queries == n_rays * d_query,
+              f"reference step: K1 {launches} (expected {expected}), DDF queries {queries}")
+        torch.save({"batch": _batch_to(batch, "cpu"), "draws": _to(draws, "cpu"), "sky_rounding": sky_rounding,
+                    "grads": {k: t.grad.detach().cpu() for k, t in tree_items(params) if t.grad is not None},
+                    "params": {k: t.detach().cpu() for k, t in tree_items(params)}}, Path(work) / "reference.pt")
+        del params, model
+        torch.cuda.empty_cache()
+        log(f"phase 13 reference (one process, {n_rays} rays, {d_query} queried directions in chunks of "
+            f"{mesh_check_config(cfg).visibility_query_chunk}): total loss {total:.6f}")
+        for label, (world, dirs, backend) in MESH_RUNS.items():
+            if backend == "nccl" and torch.cuda.device_count() < world:
+                log(f"phase 13 {label} not run: {torch.cuda.device_count()} card(s) for {world} NCCL ranks")
+                continue
+            t0 = time.perf_counter()
+            ranks = run_ranks("chip_smoke:mesh_rank", world, dict(dirs=dirs, backend=backend, work=work))
+            wall = time.perf_counter() - t0
+            r0 = ranks[0]
+            data = world // dirs
+            shares = [d_query // dirs + (1 if j < d_query % dirs else 0) for j in range(dirs)]
+            for r in ranks:
+                want_q = (n_rays // data) * shares[r["rank"] % dirs]
+                check(r["rays"] == n_rays // data, f"{label} rank {r['rank']}: {r['rays']} rays")
+                check(r["check_launches"] == expected and r["launches"] == [expected] * len(r["launches"]),
+                      f"{label} rank {r['rank']}: K1 launches {r['check_launches']}, {r['launches']} "
+                      f"(expected {expected} a step)")
+                check(r["check_queries"] == want_q and r["queries"] == [want_q] * len(r["queries"]),
+                      f"{label} rank {r['rank']}: DDF queries {r['check_queries']}, {r['queries']} (expected {want_q})")
+                check(all(math.isfinite(x) for x in r["losses"]), f"{label} rank {r['rank']}: losses {r['losses']}")
+                check(abs(r["check_loss"] - total) <= 1e-4 * abs(total),
+                      f"{label} rank {r['rank']}: check loss {r['check_loss']:.7f} vs one process {total:.7f}")
+            check(len({r["check_digest"] for r in ranks}) == 1, f"{label}: params after the check step differ by rank")
+            check(len({r["digest"] for r in ranks}) == 1, f"{label}: params after the steps differ by rank")
+            check(not r0["grad_bad"], f"{label}: rank 0's gradient differs from the one-process step: {r0['grad_bad']}")
+            check(not r0["param_bad"],
+                  f"{label}: rank 0's params after the check step differ from one process's: {r0['param_bad']}")
+            for r in ranks:
+                log(f"phase 13 {label} rank {r['rank']}: steady {r['steady_ms']:.3f} ms a step (steps "
+                    + json.dumps([round(t, 1) for t in r["step_ms"]]) + f"), all-reduce {r['allreduce_ms']:.3f} ms a "
+                    f"step, peak {r['peak_gib']:.3f} GiB, K1 {r['launches'][-1]} a step, DDF queries "
+                    f"{r['queries'][-1]} a step, {r['rays']} rays ({card})")
+            summary = {"run": label, "ranks": world, "data": data, "dirs": dirs, "backend": backend,
+                       "check_loss": r0["check_loss"], "one_process_loss": total,
+                       "loss_rel_err": abs(r0["check_loss"] - total) / abs(total),
+                       "grad_worst_over_allowance_by_group": r0["grad_worst"],
+                       "param_worst_abs_by_group": r0["param_worst"],
+                       "steady_ms": [r["steady_ms"] for r in ranks], "allreduce_ms": [r["allreduce_ms"] for r in ranks],
+                       "peak_gib": [r["peak_gib"] for r in ranks], "k1_per_step": expected,
+                       "ddf_queries_per_step": [r["queries"][-1] for r in ranks], "wall_s": wall}
+            results[label] = summary
+            log("phase 13 " + json.dumps(summary))
+    log(f"phase 13 took {time.perf_counter() - t_phase:.3f} s")
+    return results
+
+
+def mesh_path() -> int:
+    """Phase 13 alone (the kernels built first):
+
+        python3 -c 'import chip_smoke, sys; sys.exit(chip_smoke.mesh_path())'
+    """
+    if not torch.cuda.is_available():
+        print("mesh_path: CUDA is not available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = nvidia_smi_line()
+    build_all()
+    run_mesh_path(card)
+    print(card)
+    return 0
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2022,6 +2347,7 @@ def main() -> int:
     bench = run_bench_path(card)
     run_tools_path(card)
     split = run_variants_path(card, bench[0])
+    run_mesh_path(card)
     joint_k1 = {k: sum(r[k] for r in sites) for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
     log(f"phase 5's joint step K1 (unfused, float32 mapping): {main_launches} launches in {STEPS} steps, "
         + json.dumps(joint_k1) + " ms a step")

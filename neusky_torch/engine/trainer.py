@@ -1,7 +1,16 @@
 """Trainer: the step loop with its log, eval and save cadences, and
 checkpoint save / resume (mirror of ``neusky_tpu/engine/trainer.py``).
 Entry point: runs on ``device`` (default CUDA; raises without a card unless
-``device="cpu"``)."""
+``device="cpu"``).
+
+With ``mesh`` (:func:`~neusky_torch.parallel.mesh.make_mesh`) the trainer
+is one rank of a multi-device run: every rank builds it alike (the same
+config, seed and data), the parameters are broadcast from rank 0, rank 0's
+batch is broadcast every step (the native sampler's prefetch may give the
+ranks different ones) and each rank trains on its shard
+(:func:`~neusky_torch.parallel.mesh.shard_batch`).  Every rank runs the
+eval passes, whose visibility may split over the ``dirs`` axis; rank 0
+alone logs, writes and saves, and its checkpoint resumes in one process."""
 
 from __future__ import annotations
 
@@ -11,6 +20,7 @@ from pathlib import Path
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from neusky_torch.data.datamanager import DataManager
 from neusky_torch.device import resolve_device
@@ -20,7 +30,12 @@ from neusky_torch.engine.eval_loop import eval_image_metrics, fit_eval_latents
 from neusky_torch.engine.eval_panels import image_metrics_and_panels
 from neusky_torch.models.neusky import NeuSkyModel
 from neusky_torch.models.pipeline import PipelineConfig
-from neusky_torch.parallel.mesh import make_train_step, make_train_step_split
+from neusky_torch.parallel.mesh import (
+    make_train_step,
+    make_train_step_split,
+    replicate,
+    shard_batch,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +61,7 @@ class Trainer:
         datamanager: DataManager,
         optimizer_groups: Optional[Dict[str, opt_mod.OptimizerGroupConfig]] = None,
         device="cuda",
+        mesh=None,
     ):
         self.device = resolve_device(device)
         if model.device != self.device or datamanager.device != self.device:
@@ -58,10 +74,15 @@ class Trainer:
         self.generator.manual_seed(config.seed)
         self.params = model.init(self.generator)
         self.params = load_illumination_prior(self.params, model.config)
+        self.mesh = mesh
+        self.is_main = mesh is None or dist.get_rank() == 0
+        if mesh is not None:
+            model.set_mesh(mesh)
+            self.params = replicate(self.params, mesh)
         groups = optimizer_groups or opt_mod.default_neusky_optimizer_groups(config.max_num_iterations)
         self.optimizer = opt_mod.GroupedAdam(self.params, groups)
         make_step = make_train_step_split if config.use_split_step else make_train_step
-        self.train_step = make_step(model, pipeline_config, self.optimizer)
+        self.train_step = make_step(model, pipeline_config, self.optimizer, mesh)
         self.step = 0
         self.history: list = []
         self.writer = None
@@ -97,8 +118,10 @@ class Trainer:
         rays_done = 0
         while self.step < target:
             batch = self.datamanager.next_train(self.step)
-            aux = self.train_step(self.params, batch, float(self.step), generator=self.generator)
             rays_done += self._count_rays(batch)
+            if self.mesh is not None:
+                batch = shard_batch(replicate(batch, self.mesh), self.mesh)
+            aux = self.train_step(self.params, batch, float(self.step), generator=self.generator)
             self.step += 1
             if self.step % self.config.steps_per_log == 0 or self.step == target:
                 total = float(aux["total_loss"])  # waits for the device
@@ -111,9 +134,9 @@ class Trainer:
                     **{k: float(v) for k, v in aux["loss_dict"].items()},
                 }
                 self.history.append(record)
-                if log_fn:
+                if log_fn and self.is_main:
                     log_fn(record)
-                if self.writer is not None:
+                if self.writer is not None and self.is_main:
                     self.writer.write_scalars(self.step, record)
             if self.step % self.config.steps_per_eval_image == 0 and self.datamanager.num_eval > 0:
                 self._eval_image_pass()
@@ -131,7 +154,7 @@ class Trainer:
         outputs = m.pop("outputs")
         record = {f"eval_{k}": v for k, v in m.items() if v is not None}
         self.history.append({"step": self.step, **record})
-        if self.writer is not None:
+        if self.writer is not None and self.is_main:
             self.writer.write_scalars(self.step, record)
             cams = self.datamanager.eval_cameras
             _, batch = self.datamanager.eval_image_bundle(image_idx)
@@ -141,6 +164,9 @@ class Trainer:
                 self.writer.write_image(self.step, name, img)
 
     def save(self, path: Optional[str] = None):
+        """Write the checkpoint (rank 0 alone on a mesh)."""
+        if not self.is_main:
+            return
         save_checkpoint(Path(path or self.config.output_dir), self.step, self.params, self.optimizer.state_dict())
 
     def load(self, path: str, step: Optional[int] = None):

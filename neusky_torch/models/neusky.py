@@ -69,6 +69,8 @@ from neusky_torch.fields.sdf_albedo import SDFAlbedoField, SDFAlbedoFieldConfig
 from neusky_torch.models import losses as L
 from neusky_torch.models.ddf_model import DDFModel, DDFModelConfig
 from neusky_torch.nets.density import neus_alpha
+from neusky_torch.ops.hashgrid import salt_with_lanes
+from neusky_torch.parallel import collectives
 from neusky_torch.sampling.illumination import IcosahedronSampler
 from neusky_torch.sampling.proposal import ProposalSamplerConfig, proposal_sample
 from neusky_torch.shading.lambertian import blinn_phong_composite, lambertian_composite
@@ -228,6 +230,46 @@ class NeuSkyModel:
         )
         self.num_directions = self.illumination_sampler.actual_num_directions
         self.ddf = DDFModel(config.ddf, ddf_radius=config.ddf_radius) if config.ddf is not None else None
+        self.mesh = None
+
+    def set_mesh(self, mesh) -> "NeuSkyModel":
+        """Run as one rank of ``mesh`` (a ``DeviceMesh`` with axes
+        ``("data",)`` or ``("data", "dirs")``, :func:`~neusky_torch.parallel.
+        mesh.make_mesh`), or alone with None.  On a ``data`` axis the
+        training forward takes this rank's rays of the global batch: it
+        draws the global draws and keeps its rows, and hashes the
+        stochastic table gradients at the global lanes.  On a ``dirs``
+        axis the visibility queries split over the ranks of a ``dirs``
+        group (:meth:`compute_visibility`).  Every rank must run the same
+        calls: the split ones meet in collectives."""
+        self.mesh = mesh
+        return self
+
+    def _data_rows(self, n_rays: int, n_extra: int) -> Tuple[Optional[torch.Tensor], int]:
+        """(rows, global rows): with a ``data`` axis of size > 1, the row of
+        the global batch of each of this rank's ``n_rays`` scene rays (shard
+        ``coord`` of equal shards), then of the ``n_extra`` rays every rank
+        holds whole, which follow the global scene rays; else (None,
+        ``n_rays + n_extra``)."""
+        axis = collectives.mesh_axis(self.mesh, "data")
+        if axis is None or axis[1] == 1:
+            return None, n_rays + n_extra
+        coord, size = axis
+        rows = torch.cat([torch.arange(n_rays, device=self.device) + coord * n_rays,
+                          torch.arange(n_extra, device=self.device) + size * n_rays])
+        return rows, size * n_rays + n_extra
+
+    def _dirs_share(self, d: int) -> Optional[Tuple[int, int]]:
+        """[start, stop) of the ``d`` queried directions this rank queries
+        on a ``dirs`` axis of size > 1 (contiguous, the first ``d % size``
+        ranks one more), else None."""
+        axis = collectives.mesh_axis(self.mesh, "dirs")
+        if axis is None or axis[1] == 1:
+            return None
+        coord, size = axis
+        if d < size:
+            raise ValueError(f"{d} queried directions cannot split over {size} 'dirs' ranks")
+        return collectives.split_range(d, size, coord)
 
     # ------------------------------------------------------------------
 
@@ -265,16 +307,27 @@ class NeuSkyModel:
             }
         return params
 
-    def draw(self, draws: Optional[dict], generator: Optional[torch.Generator], n_rays: int) -> dict:
+    def draw(self, draws: Optional[dict], generator: Optional[torch.Generator], n_rays: int,
+             n_extra: int = 0) -> dict:
         """Complete ``draws`` with everything one training ``forward`` of
-        ``n_rays`` rays consumes (see the module docstring)."""
+        ``n_rays`` scene rays and ``n_extra`` more (the fused pass's
+        ground-truth rays) consumes (see the module docstring).  On a
+        ``data`` mesh axis the draws are the global batch's, given or drawn
+        (every rank draws the same from the same generator state), and this
+        rank keeps its rows of the per-ray ones; ``rows`` then holds the
+        global row of each of its rays."""
         c = self.config
         dev = self.device
         d = dict(draws or {})
+        rows, n_all = self._data_rows(n_rays, n_extra)
         rounds = len(c.proposal.num_proposal_samples) + 1
         if "proposal_jitters" not in d:
-            d["proposal_jitters"] = [torch.rand((n_rays, 1), generator=generator, device=dev) for _ in range(rounds)]
-        d.update(self.draw_ddf_gt(d, generator, n_rays))
+            d["proposal_jitters"] = [torch.rand((n_all, 1), generator=generator, device=dev) for _ in range(rounds)]
+        d.update(self.draw_ddf_gt(d, generator, n_all))
+        if rows is not None:
+            d["proposal_jitters"] = [j[rows] for j in d["proposal_jitters"]]
+            d["proposal_stoch_u"] = [u.reshape(n_all, -1)[rows].reshape(-1) for u in d["proposal_stoch_u"]]
+            d["rows"] = rows
         if "light_rotation" not in d:
             d["light_rotation"] = torch.randn((4,), generator=generator, device=dev)
         if c.losses.hashgrid_density:
@@ -399,6 +452,7 @@ class NeuSkyModel:
         stop_sdf_gradients: bool,
         compute_sdf_at_termination: bool,
         stoch_salt: Optional[torch.Tensor] = None,
+        ray_rows: Optional[torch.Tensor] = None,
     ) -> dict:
         """DDF visibility of each ray's surface point toward each light
         direction: ``visibility`` [N, 1, D], ``difference`` [N, D],
@@ -413,7 +467,20 @@ class NeuSkyModel:
         from the point leaves the sphere, looking back; the occlusion is a
         sigmoid of how far the DDF's surface lies before the point.  The
         SDF is evaluated at a strided subset of ``sdf_level_set_subset``
-        directions' termination points (all of them when 0)."""
+        directions' termination points (all of them when 0).
+
+        On a ``dirs`` mesh axis each rank of a ``dirs`` group (which holds
+        the same rays) queries the DDF for its contiguous share of the
+        queried directions, in its own ``visibility_query_chunk`` chunks,
+        and the SDF at the level-set subset's directions in that share; the
+        termination distances and the SDF values are then gathered in
+        JAX's order (:func:`~neusky_torch.parallel.collectives.gather_slots`,
+        whose backward sums over the group) and the rest is computed whole
+        on every rank.  The level-set query hashes its stochastic table
+        gradient at JAX's lanes: the point's index in the global [N·k]
+        query (``ray_rows``: the global row of each ray on a ``data`` mesh
+        axis), modulo JAX's chunk (``sdf_query_chunk``, times the mesh size
+        on a ``dirs`` axis) when chunked."""
         c = self.config
         r = c.ddf_radius
         n = ray_samples.num_rays
@@ -444,11 +511,15 @@ class NeuSkyModel:
         dist_to_origins = torch.clamp(torch.linalg.norm(sphere_pts - pos_nd, dim=-1), max=2.0 * r)
 
         ddf_params = params["ddf_field"]
-        out = _chunked_apply(
-            lambda o, dd: self.ddf.apply(ddf_params, o, dd), (sphere_pts, -dir_nd),
-            c.visibility_query_chunk, c.visibility_remat_policy,
-        )
-        expected = out["expected_termination_dist"]  # [N·D]
+        ddf_query = lambda o, dd: self.ddf.apply(ddf_params, o, dd)  # noqa: E731
+        share = self._dirs_share(d)
+        lo, hi = share or (0, d)
+        mine = lambda x: x.reshape(n, d, 3)[:, lo:hi].reshape(-1, 3)  # noqa: E731
+        expected = _chunked_apply(ddf_query, (mine(sphere_pts), mine(-dir_nd)), c.visibility_query_chunk,
+                                  c.visibility_remat_policy)["expected_termination_dist"]
+        if share is not None:
+            expected = collectives.gather_slots(expected.reshape(n, hi - lo, *expected.shape[1:]), lo, d,
+                                                self.mesh.get_group("dirs")).reshape(-1, *expected.shape[1:])
 
         difference = dist_to_origins - expected
         occlusion = torch.sigmoid(sigmoid_scale * (difference - threshold_distance))
@@ -473,14 +544,28 @@ class NeuSkyModel:
             if stop_sdf_gradients:
                 field_params = tree_map(lambda t: t.detach(), field_params)
             sub = c.sdf_level_set_subset
-            if sub and sub < d:
-                stride = d // sub
-                term_points = term_points.reshape(n, d, 3)[:, ::stride, :][:, :sub, :].reshape(-1, 3)
-            query = lambda p: {"sdf": self.field.sdf_only(field_params, p, stoch_salt)}  # noqa: E731
+            stride, count = (d // sub, sub) if (sub and sub < d) else (1, d)
+            # the subset's directions k·stride in [lo, hi)
+            k_lo, k_hi = (min(-(-x // stride), count) for x in (lo, hi))
+            if k_hi == k_lo:
+                raise ValueError(f"directions [{lo}, {hi}) hold none of the level-set subset's "
+                                 f"{count}: fewer 'dirs' ranks or a larger sdf_level_set_subset")
+            term_points = term_points.reshape(n, d, 3)[:, ::stride][:, k_lo:k_hi].reshape(-1, 3)
+            rows = ray_rows[:n] if ray_rows is not None else torch.arange(n, device=self.device)
+            lanes = (rows[:, None] * count + torch.arange(k_lo, k_hi, device=self.device)[None]).reshape(-1)
             if c.sdf_query_chunk:
-                result["sdf_at_termination"] = _chunked_apply(query, (term_points,), c.sdf_query_chunk)["sdf"]
+                dirs_axis = self.mesh is not None and "dirs" in self.mesh.mesh_dim_names
+                lanes = lanes % (c.sdf_query_chunk * (self.mesh.size() if dirs_axis else 1))
+            query = lambda p, ln: {"sdf": self.field.sdf_only(  # noqa: E731
+                field_params, p, None if stoch_salt is None else salt_with_lanes(stoch_salt, ln))}
+            if c.sdf_query_chunk:
+                sdf = _chunked_apply(query, (term_points, lanes), c.sdf_query_chunk)["sdf"]
             else:
-                result["sdf_at_termination"] = query(term_points)["sdf"]
+                sdf = query(term_points, lanes)["sdf"]
+            if share is not None:
+                sdf = collectives.gather_slots(sdf.reshape(n, k_hi - k_lo, *sdf.shape[1:]), k_lo, count,
+                                               self.mesh.get_group("dirs")).reshape(-1, *sdf.shape[1:])
+            result["sdf_at_termination"] = sdf
         return result
 
     def _visibility_threshold(self, params, step: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -576,7 +661,7 @@ class NeuSkyModel:
         rb_s, rb_g = self.apply_collider(ray_bundle), self.apply_collider(gt_ray_bundle)
         rb = RayBundle(**{f.name: torch.cat([getattr(rb_s, f.name), getattr(rb_g, f.name)], dim=0)
                           for f in dataclasses.fields(RayBundle)})
-        draws = self.draw(draws, generator, rb.num_rays) if train else {}
+        draws = self.draw(draws, generator, n, rb_g.num_rays) if train else {}
         rs, weights_list, samples_list, field_out, weights, trans = self._field_pass(
             params, rb, step, train, draws, generator)
         head, tail = slice(0, n), slice(n, None)
@@ -591,16 +676,22 @@ class NeuSkyModel:
     def _field_pass(self, params, rb: RayBundle, step, train: bool, draws: dict, generator):
         """Proposal sampling and the SDF field over ``rb`` → (ray samples,
         proposal weights and samples, field outputs, weights,
-        transmittance)."""
+        transmittance).  The SDF's stochastic table gradient hashes sample
+        s of the ray of row r at lane r·S + s, as JAX's global encode does:
+        r is the ray's global row, ``draws["rows"]``, on a ``data`` mesh
+        axis, else its index."""
         c = self.config
         rs, weights_list, samples_list = proposal_sample(
             rb, self.density_fns(params, draws.get("proposal_stoch_u")),
             c.proposal, train=train, step=step, jitters=draws.get("proposal_jitters"),
             generator=generator,
         )
-        field_out = self.field.field_outputs(
-            params["fields"], rs, True, c.cos_anneal_ratio, self._field_salt(draws.get("sdf_salt")),
-        )
+        salt = self._field_salt(draws.get("sdf_salt"))
+        if salt is not None:
+            s = rs.num_samples
+            rows = draws["rows"] if "rows" in draws else torch.arange(rb.num_rays, device=self.device)
+            salt = salt_with_lanes(salt, (rows[:, None] * s + torch.arange(s, device=self.device)[None]).reshape(-1))
+        field_out = self.field.field_outputs(params["fields"], rs, True, c.cos_anneal_ratio, salt)
         weights, trans = weights_and_transmittance_from_alphas(field_out["alpha"])
         return rs, weights_list, samples_list, field_out, weights, trans
 
@@ -628,7 +719,7 @@ class NeuSkyModel:
                 params, rs, p2p.detach() if stop_depth else p2p, illum_dirs, thr, sig_scale,
                 stop_sdf_gradients=stop_sdf,
                 compute_sdf_at_termination=train and c.losses.sdf_level_set_visibility,
-                stoch_salt=self._field_salt(draws.get("sdf_salt")),
+                stoch_salt=self._field_salt(draws.get("sdf_salt")), ray_rows=draws.get("rows"),
             )
         visibility = vis_dict["visibility"] if vis_dict is not None else None
         if "shininess" in field_out:
@@ -658,6 +749,8 @@ class NeuSkyModel:
             "weights_list": weights_list,
             "samples_list": samples_list,
         }
+        if "rows" in draws:
+            outputs["ray_rows"] = draws["rows"][:rb.num_rays]
         if vis_dict is not None:
             outputs["visibility"] = vis_dict["visibility"]
             if "sdf_at_termination" in vis_dict:
@@ -767,16 +860,25 @@ class NeuSkyModel:
         return L.scale_loss_dict(ld, dict(c.loss_coefficients))
 
     def metrics_dict(self, params, outputs, batch) -> Dict[str, torch.Tensor]:
-        mse = torch.mean((outputs["rgb"] - batch["image"]) ** 2)
-        psnr = -10.0 * torch.log10(torch.clamp(mse, min=1e-10))
+        """PSNR (and over the foreground mask), ``inv_s`` and the
+        visibility threshold, from sums: outputs of a rank's rays of a
+        ``data`` mesh axis (``ray_rows``) sum them over the data shards
+        first, so the metrics are the global batch's."""
+        sq = (outputs["rgb"] - batch["image"]) ** 2
+        sums = [sq.sum(), sq.new_tensor(float(sq.numel()))]
+        if "mask" in batch:
+            fg = batch["mask"][..., 1:2]
+            sums += [torch.sum(fg * sq), torch.sum(fg)]
+        sums = torch.stack(sums)
+        if "ray_rows" in outputs:
+            sums = collectives.all_sum(sums, self.mesh.get_group("data"))
+        psnr = -10.0 * torch.log10(torch.clamp(sums[0] / sums[1], min=1e-10))
         inv_s = self.field.inv_s(params["fields"])
         m = {"psnr": psnr, "inv_s": inv_s[0], "s_val": 1.0 / inv_s[0]}
         if "mask" in batch:
-            fg = batch["mask"][..., 1:2]
-            mse_fg = torch.sum(fg * (outputs["rgb"] - batch["image"]) ** 2) / (
-                3.0 * torch.clamp(torch.sum(fg), min=1.0)
-            )
+            mse_fg = sums[2] / (3.0 * torch.clamp(sums[3], min=1.0))
             m["psnr_fg"] = -10.0 * torch.log10(torch.clamp(mse_fg, min=1e-10))
         if "visibility_sigmoid" in params:
-            m["visibility_threshold"] = params["visibility_sigmoid"]["visibility_threshold"]
+            # a copy: the step's update moves the parameter in place
+            m["visibility_threshold"] = params["visibility_sigmoid"]["visibility_threshold"].clone()
         return {k: v.detach() for k, v in m.items()}

@@ -18,6 +18,11 @@ uint32 arithmetic (the Instant-NGP prime hash and ``_cheap_hash_u``) is
 emulated in int64 with ``& 0xFFFFFFFF``; multiplies by constants ≥ 2^31 go
 through :func:`_mul_u32`, which splits the constant into 16-bit halves so no
 intermediate exceeds 2^49.  Results are bit-identical to the JAX uint32 ops.
+
+The salted hash keys each point by its lane, its index in the encode call.
+A salt made by :func:`salt_with_lanes` carries the lanes explicitly: a rank
+of a mesh that encodes its share of JAX's global call hashes the global
+lanes, so its table gradients are JAX's.
 """
 
 from __future__ import annotations
@@ -356,12 +361,28 @@ def _hash_mix(x: torch.Tensor, salt) -> torch.Tensor:
     return x.to(torch.float32) * (1.0 / 4294967296.0)
 
 
+def salt_with_lanes(salt: torch.Tensor, lanes: torch.Tensor) -> torch.Tensor:
+    """A salt that hashes point i of an encode call as lane ``lanes[i]``
+    (int64, [N]) in place of i: ``[salt, *lanes]``, int64 [N + 1]."""
+    return torch.cat([salt.reshape(1).to(torch.int64), lanes.to(torch.int64)])
+
+
+def _salt_and_lanes(n: int, salt):
+    """(uint32 salt, int64 lanes [N]) of a salt: a plain salt (int64
+    tensor of shape [], or int) hashes lanes 0..N-1."""
+    if not isinstance(salt, torch.Tensor) or salt.dim() == 0:
+        device = salt.device if isinstance(salt, torch.Tensor) else None
+        return salt, torch.arange(n, dtype=torch.int64, device=device)
+    if salt.shape[0] != n + 1:
+        raise ValueError(f"salt carries {salt.shape[0] - 1} lanes for {n} points")
+    return salt[0], salt[1:]
+
+
 def _cheap_hash_u(n: int, lvl: int, salt: torch.Tensor) -> torch.Tensor:
     """[N] uniforms in [0, 1) from (lane index, level, salt): the JAX
     Wang-style uint32 mix, bit for bit.  ``salt`` is an int64 tensor (or
-    int) holding a uint32 value."""
-    device = salt.device if isinstance(salt, torch.Tensor) else None
-    x = torch.arange(n, dtype=torch.int64, device=device)
+    int) holding a uint32 value, or one of :func:`salt_with_lanes`."""
+    salt, x = _salt_and_lanes(n, salt)
     x = (_mul_u32(x, 0x9E3779B9) + ((lvl * 0x85EBCA6B) & _U32)) & _U32
     return _hash_mix(x, salt)
 
@@ -526,7 +547,8 @@ def _unassemble_dx(g_d: torch.Tensor, l: int, f: int) -> torch.Tensor:
 
 def _cheap_hash_u_all(n: int, l: int, salt: torch.Tensor) -> torch.Tensor:
     """[L, N] uniforms; row lvl bit-identical to ``_cheap_hash_u(n, lvl, salt)``."""
-    x = _mul_u32(torch.arange(n, dtype=torch.int64, device=salt.device), 0x9E3779B9)[None, :]
+    salt, lanes = _salt_and_lanes(n, salt)
+    x = _mul_u32(lanes, 0x9E3779B9)[None, :]
     lvl_off = _mul_u32(torch.arange(l, dtype=torch.int64, device=salt.device), 0x85EBCA6B)[:, None]
     return _hash_mix((x + lvl_off) & _U32, salt)
 

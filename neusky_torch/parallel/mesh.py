@@ -1,12 +1,43 @@
-"""Single-device steps (mirror of ``neusky_tpu/parallel/mesh.py``
-``make_train_step``, ``make_train_step_split`` and ``make_eval_latent_step``
-without a mesh): value and grad of the loss, then the optimizer update."""
+"""Training steps, alone or as one rank of a device mesh (mirror of
+``neusky_tpu/parallel/mesh.py``): value and grad of the loss, then the
+optimizer update.
+
+The mesh replaces the reference's DDP (``neusky_pipeline.py:197-200``) as
+JAX's does, on ``torch.distributed``: a ``DeviceMesh`` with JAX's axis
+names, ``("data",)`` or ``("data", "dirs")``, one process a rank.  Each rank
+holds the whole parameters (:func:`replicate`) and its ``data`` shard of
+the batch's rays (:func:`shard_batch`); the ranks of a ``dirs`` group hold
+the same rays and split the visibility queries over the light directions
+(``NeuSkyModel.set_mesh``).  A mesh step computes JAX's global-view step,
+which is the one-process step on the whole batch:
+
+- every scene and DDF loss is a plain mean, and the shards are equal, so
+  the mean over ranks of each rank's loss is the global loss; the terms on
+  inputs every rank holds whole (the DDF fit's vMF rays, drawn inside the
+  step; the density grid; the sigmoid loss) are the same on every rank;
+- so after the backward ``.grad`` is averaged over every rank of the mesh,
+  with the losses, in one coalesced ``all_reduce`` a step
+  (:func:`~neusky_torch.parallel.collectives.average_grads`); the
+  visibility's gather sums its cotangent over the ``dirs`` group, which
+  this average divides back;
+- the draws are the global batch's, every rank drawing the same and
+  keeping its rows (``NeuSkyModel.draw``), and the stochastic table
+  gradients hash the global lanes.
+
+The backend is the caller's: ``nccl`` with a card a rank, ``gloo`` on the
+CPU or where ranks share a card (gloo runs ``all_reduce`` and
+``broadcast`` on CUDA tensors, the only collectives used).
+"""
 
 from __future__ import annotations
 
+import dataclasses
+import datetime
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from neusky_torch.engine.optimizers import GroupedAdam
 from neusky_torch.models.neusky import NeuSkyModel
@@ -17,32 +48,149 @@ from neusky_torch.models.pipeline import (
     scene_loss_fn,
     train_loss_fn,
 )
+from neusky_torch.parallel.collectives import average_grads, mesh_axis
+from neusky_torch.tree import tree_leaves
+
+BACKENDS = ("nccl", "gloo")
+PG_TIMEOUT_S = 600.0  # a collective waits this long for a rank that failed
 
 
-def make_train_step(model: NeuSkyModel, pipeline_config: PipelineConfig, optimizer: GroupedAdam) -> Callable:
+def check_backend(backend: str, world_size: int) -> None:
+    """Raise unless ``backend`` can run ``world_size`` ranks on this host:
+    NCCL needs a card a rank."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r}: one of {BACKENDS}")
+    if backend == "nccl" and world_size > torch.cuda.device_count():
+        raise ValueError(f"nccl runs one rank a card: {world_size} ranks, {torch.cuda.device_count()} cards "
+                         "(ranks that share a card take gloo)")
+
+
+def make_mesh(
+    world_size: int,
+    dirs: int = 1,
+    *,
+    backend: str,
+    rank: int,
+    init_method: str,
+    device=None,
+) -> DeviceMesh:
+    """Start this rank's process group (``backend``, ``init_method`` such as
+    ``file:///tmp/x/store``, ``rank`` of ``world_size``) and return the mesh
+    over all ranks: ``("data",)`` of size ``world_size``, or with ``dirs`` >
+    1 ``("data", "dirs")`` of shape ``(world_size // dirs, dirs)``, rank =
+    data · dirs + dirs coordinate.  With NCCL ``device`` (this rank's card)
+    becomes the current device."""
+    check_backend(backend, world_size)
+    if world_size % dirs:
+        raise ValueError(f"{world_size} ranks do not split into 'dirs' groups of {dirs}")
+    if backend == "nccl":
+        torch.cuda.set_device(torch.device(device))
+    dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world_size,
+                            timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+    shape, names = ((world_size // dirs, dirs), ("data", "dirs")) if dirs > 1 else ((world_size,), ("data",))
+    ranks = torch.arange(world_size).reshape(shape)
+    return DeviceMesh("cuda" if backend == "nccl" else "cpu", ranks, mesh_dim_names=names)
+
+
+def _map_tensors(fn: Callable, tree, key: str = ""):
+    """``fn(key, tensor)`` over the tensors of a batch or params tree
+    (dicts, dataclasses such as ``RayBundle``, lists); ``key`` is the
+    top-level key above each tensor."""
+    if isinstance(tree, torch.Tensor):
+        return fn(key, tree)
+    if isinstance(tree, dict):
+        return {k: _map_tensors(fn, v, key or k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(fn, v, key) for v in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{f.name: _map_tensors(fn, getattr(tree, f.name), key)
+                                            for f in dataclasses.fields(tree) if f.init})
+    return tree
+
+
+def replicate(tree, mesh: Optional[DeviceMesh]):
+    """Every tensor of ``tree`` broadcast from rank 0 (in place where the
+    tensor is contiguous, so the parameters an optimizer holds are
+    replicated as they stand) → the tree."""
+    if mesh is None:
+        return tree
+
+    def bcast(_, t):
+        t = t if t.is_contiguous() else t.contiguous()
+        with torch.no_grad():
+            dist.broadcast(t, src=0)
+        return t
+
+    return _map_tensors(bcast, tree)
+
+
+def shard_batch(batch, mesh: Optional[DeviceMesh]):
+    """This rank's rows of ``batch`` by JAX's ``_batch_spec`` rule: a
+    tensor whose leading axis is divisible by the ``data`` size is cut into
+    that many equal shards and this rank keeps shard ``data coordinate``;
+    ``image_indices``, ``cameras`` and scalars stay whole.  Raises unless
+    the ``data`` size divides the scene rays (``ray_bundle`` or
+    ``pixel_coords``): the model takes a rank's rays as an equal shard of
+    the global batch, for its draws and hash lanes."""
+    axis = mesh_axis(mesh, "data")
+    if axis is None or axis[1] == 1:
+        return batch
+    coord, size = axis
+    rays = batch["ray_bundle"].origins if "ray_bundle" in batch else batch.get("pixel_coords")
+    if rays is not None and rays.shape[0] % size:
+        raise ValueError(f"the 'data' size {size} does not divide the batch's {rays.shape[0]} scene rays")
+
+    def shard(key, t):
+        if key in ("image_indices", "cameras") or t.dim() == 0 or t.shape[0] % size or t.shape[0] < size:
+            return t
+        n = t.shape[0] // size
+        return t[coord * n:(coord + 1) * n]
+
+    return _map_tensors(shard, batch)
+
+
+def _trainable(params):
+    return [t for t in tree_leaves(params) if t.requires_grad]
+
+
+def _finish(params, mesh, total, loss_dict):
+    """Average ``.grad`` (and the losses) over ``mesh``'s ranks → (total,
+    loss dict), detached."""
+    scalars = {"total_loss": total, **{k: v for k, v in loss_dict.items()}}
+    if mesh is not None:
+        scalars = average_grads(_trainable(params), scalars)
+    scalars = {k: v.detach() for k, v in scalars.items()}
+    return scalars.pop("total_loss"), scalars
+
+
+def make_train_step(model: NeuSkyModel, pipeline_config: PipelineConfig, optimizer: GroupedAdam,
+                    mesh: Optional[DeviceMesh] = None) -> Callable:
     """``step_fn(params, batch, step, draws=None, generator=None) → aux``;
-    parameters are updated in place."""
+    parameters are updated in place.  With ``mesh`` (the model's, see
+    ``NeuSkyModel.set_mesh``) ``batch`` is this rank's shard
+    (:func:`shard_batch`), ``draws`` and ``generator`` the global step's,
+    and the aux losses and metrics are the global batch's."""
 
     def step_fn(params, batch, step, draws: Optional[dict] = None, generator: Optional[torch.Generator] = None):
         optimizer.zero_grad()
         total, aux = train_loss_fn(model, pipeline_config, params, batch, step, draws, generator)
         total.backward()
+        total, loss_dict = _finish(params, mesh, total, aux["loss_dict"])
         optimizer.step()
-        aux = dict(aux)
-        aux["loss_dict"] = {k: v.detach() for k, v in aux["loss_dict"].items()}
-        aux["total_loss"] = total.detach()
-        return aux
+        return {**aux, "loss_dict": loss_dict, "total_loss": total}
 
     return step_fn
 
 
-def make_train_step_split(model: NeuSkyModel, pipeline_config: PipelineConfig, optimizer: GroupedAdam) -> Callable:
+def make_train_step_split(model: NeuSkyModel, pipeline_config: PipelineConfig, optimizer: GroupedAdam,
+                          mesh: Optional[DeviceMesh] = None) -> Callable:
     """The step in two gradient passes, as JAX's split step: the scene
     loss's backward first (its graph is freed), then the DDF fit's, which
     renders its own ground truth (never the fused pass); the two gradients
-    sum in ``.grad`` before one optimizer update.  It draws as the fused
-    step does (the scene's draws, then ``draws["ddf"]``), so both compute
-    the same step; the split lowers the peak memory.  Same signature as
+    sum in ``.grad`` before one optimizer update (with ``mesh``, one
+    average over the ranks before it).  It draws as the fused step does
+    (the scene's draws, then ``draws["ddf"]``), so both compute the same
+    step; the split lowers the peak memory.  Same signature as
     :func:`make_train_step`."""
     fit_ddf = model.config.fit_visibility_field and model.ddf is not None
 
@@ -61,22 +209,27 @@ def make_train_step_split(model: NeuSkyModel, pipeline_config: PipelineConfig, o
             total = total + ddf_total.detach()
             loss_dict.update((k, v.detach()) for k, v in ddf_aux["loss_dict"].items())
             metrics.update(ddf_aux["metrics"])
+        total, loss_dict = _finish(params, mesh, total, loss_dict)
         optimizer.step()
         return {"loss_dict": loss_dict, "metrics": metrics, "total_loss": total}
 
     return step_fn
 
 
-def make_eval_latent_step(model: NeuSkyModel, optimizer: GroupedAdam) -> Callable:
+def make_eval_latent_step(model: NeuSkyModel, optimizer: GroupedAdam, mesh: Optional[DeviceMesh] = None) -> Callable:
     """One step of test-time latent fitting: ``step_fn(params, batch, step,
     rotation=None) → total loss`` (detached), the eval group updated in
-    place by ``optimizer`` (:func:`build_eval_latent_optimizer`)."""
+    place by ``optimizer`` (:func:`build_eval_latent_optimizer`).  With
+    ``mesh`` every rank takes the whole batch (JAX replicates it) and the
+    gradient is averaged over the ranks, so the eval latents stay equal on
+    every rank."""
 
     def step_fn(params, batch, step, rotation: Optional[torch.Tensor] = None):
         optimizer.zero_grad()
         total = eval_latent_loss_fn(model, params, batch, step, rotation)
         total.backward()
+        total, _ = _finish(params, mesh, total, {})
         optimizer.step()
-        return total.detach()
+        return total
 
     return step_fn

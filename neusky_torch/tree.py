@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import hashlib
 from typing import Any, Callable, Dict, Iterator, Tuple
 
 SEP = "/"
@@ -37,3 +38,13 @@ def unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
             node = node.setdefault(p, {})
         node[leaf] = v
     return out
+
+
+def tree_digest(tree) -> str:
+    """sha256 over every leaf's path and bytes, in order: equal exactly when
+    two trees of tensors are bitwise equal (ranks of a mesh, say)."""
+    h = hashlib.sha256()
+    for k, t in tree_items(tree):
+        h.update(k.encode())
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()

@@ -58,3 +58,30 @@ def trace_context(logdir: str = "outputs/trace"):
             torch.cuda.synchronize()
     n = len(list(out.glob(f"trace_{os.getpid()}_*.json")))
     prof.export_chrome_trace(str(out / f"trace_{os.getpid()}_{n}.json"))
+
+
+@contextlib.contextmanager
+def count_visibility_queries(model):
+    """Count the (point, direction) queries ``model.compute_visibility``
+    hands the DDF inside the block (a rank's share on a ``dirs`` mesh
+    axis): ``counts[0]`` of the list it yields."""
+    counts, inside = [0], [False]
+    apply, vis = model.ddf.apply, model.compute_visibility
+
+    def counted_apply(p, o, d):
+        if inside[0]:
+            counts[0] += o.shape[0]
+        return apply(p, o, d)
+
+    def counted_vis(*a, **k):
+        inside[0] = True
+        try:
+            return vis(*a, **k)
+        finally:
+            inside[0] = False
+
+    model.ddf.apply, model.compute_visibility = counted_apply, counted_vis
+    try:
+        yield counts
+    finally:
+        del model.ddf.apply, model.compute_visibility

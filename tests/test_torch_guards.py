@@ -53,6 +53,7 @@ def _entry_points():
     from neusky_torch.engine.trainer import Trainer, TrainerConfig
     from neusky_torch.models.neusky import NeuSkyModel
     from neusky_torch.models.pipeline import PipelineConfig
+    from neusky_torch.parallel.dryrun import dryrun_multichip
     from neusky_torch import viewer
     from neusky_torch.tools import (
         ab_ddf_encoding, diagnose_ckpt, eval_from_ckpt, fit_prior_init_latent, prior_fit_sanity, probe_sky_fit,
@@ -88,17 +89,42 @@ def _entry_points():
         "diagnose_ckpt": lambda: diagnose_ckpt.main(["no-such-dir"]),
         "prior_fit_sanity": lambda: prior_fit_sanity.main(["1", "1"]),
         "ab_ddf_encoding": lambda: ab_ddf_encoding.main(["--ckpt", "no-such-dir"]),
+        "mesh_trainer": lambda: Trainer(
+            TrainerConfig(), NeuSkyModel(cfg, device="cpu"), PipelineConfig(),
+            DataManager(DataManagerConfig(), scene["cameras"], scene["images"], scene["masks"], device="cpu"),
+            mesh=object(),
+        ),
+        "dryrun_multichip": lambda: dryrun_multichip(2),
     }
 
 
 @pytest.mark.parametrize("name", ["model", "datamanager", "trainer", "cli", "reni_trainer", "reni_prior_script",
                                   "train_sanity", "eval_from_ckpt", "render_from_ckpt", "render_animation", "viewer",
                                   "fit_prior_init_latent", "split_step_trainer", "probe_sky_fit", "diagnose_ckpt",
-                                  "prior_fit_sanity", "ab_ddf_encoding"])
+                                  "prior_fit_sanity", "ab_ddf_encoding", "mesh_trainer", "dryrun_multichip"])
 def test_entry_point_without_cpu_raises_when_cuda_absent(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         _entry_points()[name]()
+
+
+@pytest.mark.parametrize("call", ["make_mesh", "dryrun_multichip"])
+def test_nccl_with_more_ranks_than_cards_raises(call, monkeypatch, tmp_path):
+    """NCCL runs a card a rank: two ranks on one card raise before any
+    process group starts (ranks that share a card take gloo)."""
+    from neusky_torch.parallel.dryrun import dryrun_multichip
+    from neusky_torch.parallel.mesh import make_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    calls = {
+        "make_mesh": lambda: make_mesh(2, backend="nccl", rank=0, init_method=f"file://{tmp_path}/store",
+                                       device="cuda:0"),
+        "dryrun_multichip": lambda: dryrun_multichip(2, device="cuda", backend="nccl"),
+    }
+    with pytest.raises(ValueError, match="nccl runs one rank a card: 2 ranks, 1 cards"):
+        calls[call]()
+    assert not torch.distributed.is_initialized() and not (tmp_path / "store").exists()
 
 
 @pytest.mark.parametrize("command", ["main", "split_ab"])

@@ -1,0 +1,188 @@
+"""The rank side of ``tests/test_torch_parallel.py``: functions that
+``neusky_torch.parallel.launch.run_ranks`` runs, one CPU process a rank
+over gloo.  They import torch and the port only (no JAX), and hand back
+numpy arrays and digests for the test process to compare."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from neusky_torch.convert import convert_params
+from neusky_torch.engine.optimizers import GroupedAdam, OptimizerGroupConfig, build_eval_latent_optimizer
+from neusky_torch.engine.trainer import Trainer, TrainerConfig
+from neusky_torch.models.neusky import NeuSkyModel
+from neusky_torch.parallel import collectives
+from neusky_torch.parallel.mesh import (
+    make_eval_latent_step,
+    make_mesh,
+    make_train_step,
+    make_train_step_split,
+    replicate,
+    shard_batch,
+)
+from neusky_torch.tree import tree_digest, tree_items
+from neusky_torch.utils.profiling import count_visibility_queries
+
+GROUPS = ("proposal_networks", "fields", "illumination_field", "visibility_sigmoid", "ddf_field")
+
+
+def grads_of(params) -> dict:
+    return {k: t.grad.numpy().copy() for k, t in tree_items(params) if t.grad is not None}
+
+
+def _adam(params):
+    return GroupedAdam(params, {g: OptimizerGroupConfig(lr=1e-3, schedule="constant", max_steps=10)
+                                for g in GROUPS})
+
+
+def variant_step(kind, cfg, pipe, params_np, batch, mesh, step):
+    """One step of ``kind`` from ``params_np`` on ``batch`` (whole, or this
+    rank's shard with ``mesh``), drawing from a generator seeded 9:
+    ``"fused_gt"`` (``make_train_step``, the config's fused ground-truth
+    pass), ``"split"`` (``make_train_step_split``) or ``"eval_latent"``
+    (``make_eval_latent_step`` on the whole batch) → the loss, the
+    gradients and the params after it."""
+    model = NeuSkyModel(cfg, device="cpu").set_mesh(mesh)
+    params = convert_params(params_np, device="cpu")
+    if kind == "eval_latent":  # the batch's images as eval slots
+        batch = dict(batch, image_indices=batch["image_indices"] % cfg.num_eval_data)
+        loss = make_eval_latent_step(model, build_eval_latent_optimizer(params), mesh)(params, batch, step)
+    else:
+        make = make_train_step_split if kind == "split" else make_train_step
+        local = shard_batch(batch, mesh)
+        aux = make(model, pipe, _adam(params), mesh)(params, local, step, generator=torch.Generator().manual_seed(9))
+        loss = aux["total_loss"]
+    return {"total_loss": float(loss), "grads": grads_of(params), "digest": tree_digest(params),
+            "params": {k: t.detach().numpy().copy() for k, t in tree_items(params)}}
+
+
+def step_rank(rank, world_size, init_method, dirs, cfg, pipe, params_np, batch, draws, step, vis=None,
+              variants=None):
+    """One mesh step of ``make_train_step`` from the given params, batch and
+    global draws → the global losses and metrics, rank 0's averaged
+    gradients, the DDF visibility queries of this rank; then a second step
+    drawn from a generator every rank seeds alike → the digest of the
+    params after it.  With ``vis``, also :func:`visibility_checks`; with
+    ``variants`` ({kind: cfg}), :func:`variant_step` of each (the arrays
+    from rank 0 alone)."""
+    torch.set_num_threads(1)
+    mesh = make_mesh(world_size, dirs, backend="gloo", rank=rank, init_method=init_method)
+    model = NeuSkyModel(cfg, device="cpu").set_mesh(mesh)
+    params = convert_params(params_np, device="cpu")
+    step_fn = make_train_step(model, pipe, _adam(params), mesh)
+    local = shard_batch(batch, mesh)
+    with count_visibility_queries(model) as queries:
+        aux = step_fn(params, local, step, draws)
+    out = {
+        "total_loss": float(aux["total_loss"]),
+        "loss_dict": {k: float(v) for k, v in aux["loss_dict"].items()},
+        "metrics": {k: float(v) for k, v in aux["metrics"].items()},
+        "grads": grads_of(params) if rank == 0 else None,
+        "queries": queries[0],
+        "rays": int(local["pixel_coords"].shape[0]),
+    }
+    step_fn(params, local, step + 1.0, generator=torch.Generator().manual_seed(5))
+    out["digest_after_2"] = tree_digest(params)
+    if vis is not None:
+        out["vis"] = visibility_checks(model, params_np, **vis)
+    out["variants"] = {}
+    for kind, vcfg in (variants or {}).items():
+        v = variant_step(kind, vcfg, pipe, params_np, batch, mesh, step)
+        out["variants"][kind] = v if rank == 0 else {"digest": v["digest"], "total_loss": v["total_loss"]}
+    return out
+
+
+def _slice_only_gather(part, start, total, group):
+    """A gather whose backward hands each rank its slice of its own
+    cotangent, without the sum over the group (a wrong backward)."""
+    return _SliceOnly.apply(part, start, total, group)
+
+
+class _SliceOnly(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, part, start, total, group):
+        ctx.start, ctx.stop = start, start + part.shape[1]
+        return collectives._SlotGather.forward(ctx, part, start, total, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[:, ctx.start:ctx.stop], None, None, None
+
+
+def visibility_checks(model, params_np, rs, p2p, light_dirs, weights):
+    """``compute_visibility`` of the same rays on every rank, split over the
+    mesh's ``dirs`` axis and unsplit (``set_mesh(None)``), with the level-set
+    SDF under a salt, unchunked (a chunked one hashes JAX's lanes, which
+    differ on a ``dirs`` axis): the outputs, the DDF points this rank
+    queried, and the gradients of a weighted sum of the outputs averaged
+    over all ranks — with the gather's true backward and with a slice-only
+    one."""
+    mesh = model.mesh
+    model = NeuSkyModel(dataclasses.replace(model.config, sdf_query_chunk=0), device="cpu").set_mesh(mesh)
+    salt = torch.tensor(123456789, dtype=torch.int64)
+
+    def run(split: bool, gather=None):
+        params = convert_params(params_np, device="cpu")
+        for k, t in tree_items(params):
+            t.requires_grad_(k.split("/")[0] in ("ddf_field", "fields"))
+        model.set_mesh(mesh if split else None)
+        saved = collectives.gather_slots
+        if gather is not None:
+            collectives.gather_slots = gather
+        try:
+            with count_visibility_queries(model) as queries:
+                out = model.compute_visibility(
+                    params, rs, p2p, light_dirs, torch.tensor(0.1), torch.tensor(25.0),
+                    stop_sdf_gradients=False, compute_sdf_at_termination=True, stoch_salt=salt)
+            loss = sum(torch.sum(out[k] * weights[k]) for k in weights)
+            loss.backward()
+            if split:
+                collectives.average_grads([t for _, t in tree_items(params)], {})
+        finally:
+            collectives.gather_slots = saved
+            model.set_mesh(mesh)
+        return ({k: out[k].detach().numpy() for k in weights}, queries[0], grads_of(params))
+
+    split_out, split_queries, split_grads = run(True)
+    plain_out, plain_queries, plain_grads = run(False)
+    _, _, slice_grads = run(True, _slice_only_gather)
+    return {"split": split_out, "plain": plain_out, "split_queries": split_queries,
+            "plain_queries": plain_queries, "split_grads": split_grads, "plain_grads": plain_grads,
+            "slice_only_grads": slice_grads}
+
+
+def trainer_rank(rank, world_size, init_method, cfg, pipe, scene, out_dir, steps=2):
+    """``Trainer(mesh=)`` on a ``data`` mesh: a seed that differs by rank
+    before :func:`replicate` (which must undo it), then ``steps`` steps
+    saving at the last → the params' digests and rank 0's params and Adam
+    state."""
+    from neusky_torch.data.datamanager import DataManager, DataManagerConfig
+    from neusky_torch.data.pixel_sampler import PixelSamplerConfig
+
+    torch.set_num_threads(1)
+    mesh = make_mesh(world_size, 1, backend="gloo", rank=rank, init_method=init_method)
+    noisy = NeuSkyModel(cfg, device="cpu").init(torch.Generator().manual_seed(100 + rank))
+    before = tree_digest(noisy)
+    replicated = tree_digest(replicate(noisy, mesh))
+    dm = DataManager(DataManagerConfig(pixel_sampler=PixelSamplerConfig(2, 16), num_sky_rays=8),
+                     scene["cameras"], scene["images"], scene["masks"], device="cpu")
+    trainer = Trainer(TrainerConfig(max_num_iterations=100, steps_per_log=1, steps_per_save=steps,
+                                    steps_per_eval_image=1000, output_dir=out_dir, seed=0),
+                      NeuSkyModel(cfg, device="cpu"), pipe, dm, device="cpu", mesh=mesh)
+    init_digest = tree_digest(trainer.params)
+    history = trainer.run(steps)
+    return {
+        "noisy_digest": before, "replicated_digest": replicated, "init_digest": init_digest,
+        "digest": tree_digest(trainer.params), "history": history,
+        "params": {k: t.detach().numpy().copy() for k, t in tree_items(trainer.params)} if rank == 0 else None,
+        "adam": trainer.optimizer.state_dict() if rank == 0 else None,
+    }
+
+
+def max_rel_err(a, b) -> float:
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
