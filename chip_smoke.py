@@ -73,9 +73,10 @@ Phases (any failure exits non-zero; no phase's failure is passed over):
    trainer chunk and a 5-step envmap fit on the card against the CPU on
    the same draws;
 10. the configuration the JAX package's bench measures (``bench.py:85-118``),
-   at full width: first a small step of (b) on the card against the CPU
-   (the canonical widths on 2 images × 16 rays, the level-set query in
-   chunks of 512 points), then (a) ``NEUSKY_BF16_MAPPING=1`` through
+   built by the port's bench (``neusky_torch.bench.build``), at full
+   width: first a small step of (b) on the card against the CPU (the
+   canonical widths on 2 images × 16 rays, the level-set query in chunks
+   of 512 points), then (a) ``NEUSKY_BF16_MAPPING=1`` through
    ``apply_env_knobs(neusky_model_config(8, 2))``, bench's pipeline (8 ×
    128 vMF rays at κ = 20, 256 sky rays), the synthetic scene with 8 × 128
    rays a step from the C++ sampler, the converted prior and the five Adam
@@ -137,7 +138,15 @@ Phases (any failure exits non-zero; no phase's failure is passed over):
    (7 a step), the DDF's visibility queries (the rank's rays × its share
    of the directions), steady ms a step, the gradient all-reduce's ms and
    peak memory logged per rank;
-14. one JSON line listing every kernel (K1 per step of phase 12's split
+14. the port's bench, ``python -m neusky_torch.bench`` (what ``bench.py``
+   builds, phase 10's (a) and its fused step), in a child process with
+   ``NEUSKY_BENCH_STEPS=4 NEUSKY_BENCH_REPEATS=1``: its last line parses,
+   with a finite positive ``value``, 2,304 rays a step, no ``vs_baseline``
+   and this card's ``nvidia-smi`` line;
+15. ``neusky_torch.entry.entry()``: its eval-mode forward of the tiny model
+   on the card against the CPU from the same params and rays (rgb, depth,
+   normal, accumulation within 1e-4 of each output's scale), K1 0;
+16. one JSON line listing every kernel (K1 per step of phase 12's split
    step, on its own inputs, with their shapes), the card line, and the
    final ``{"ok": true, "device": ...}`` line.
 
@@ -167,14 +176,16 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from neusky_torch import bench
 from neusky_torch.configs import env_overrides
 from neusky_torch.configs.neusky_config import neusky_model_config, neusky_pipeline_config
+from neusky_torch.core.rays import RayBundle
 from neusky_torch.core.spherical import ray_sphere_intersection
 from neusky_torch.data.datamanager import DataManager, DataManagerConfig
 from neusky_torch.data.pixel_sampler import PixelSamplerConfig
 from neusky_torch.data.synthetic import SyntheticSceneConfig, generate_synthetic_scene
 from neusky_torch.engine import metrics
-from neusky_torch.engine.checkpoint import load_illumination_prior, prior_asset_path
+from neusky_torch.engine.checkpoint import load_illumination_prior, prior_asset_path, save_checkpoint
 from neusky_torch.engine.optimizers import GroupedAdam, default_neusky_optimizer_groups
 from neusky_torch.engine.eval_loop import (
     average_eval_metrics, eval_image_metrics, fit_eval_latents, make_render_chunk_fn, render_camera,
@@ -182,7 +193,7 @@ from neusky_torch.engine.eval_loop import (
 from neusky_torch.engine.trainer import Trainer, TrainerConfig
 from neusky_torch.models.neusky import NeuSkyModel, visibility_query_directions
 from neusky_torch.models.losses import ddf_sky_ray_loss
-from neusky_torch.models.pipeline import PipelineConfig, batch_sky_bundle, draw_ddf_fit, train_loss_fn
+from neusky_torch.models.pipeline import batch_sky_bundle, draw_ddf_fit, train_loss_fn
 from neusky_torch.ops import hashgrid, hashgrid_cuda as k1
 from neusky_torch.ops.hashgrid import HashGridEncoding
 from neusky_torch.parallel import mesh as mesh_mod
@@ -209,14 +220,6 @@ def check(ok: bool, what) -> None:
     """An assertion that ``python -O`` keeps."""
     if not ok:
         raise AssertionError(what)
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 # ---------------------------------------------------------------------------
@@ -401,9 +404,10 @@ def check_k1(model_cfg, pipeline_cfg, n_rays: int):
             for name, hash_cfg, n, rpp, per_step in k1_cases(model_cfg, pipeline_cfg, n_rays)]
 
 
-def capture_k1_inputs(trainer):
-    """One more training step with the encodes' scatter dispatch wrapped, to
-    keep what K1 takes on the main path: [(rows, vals, T)], call order."""
+def capture_k1_inputs(one_step):
+    """``one_step()`` (one more training step) with the encodes' scatter
+    dispatch wrapped, to keep what K1 takes on the main path: [(rows, vals,
+    T)], call order."""
     seen = []
     dispatch = hashgrid.scatter_levels
 
@@ -413,7 +417,7 @@ def capture_k1_inputs(trainer):
 
     hashgrid.scatter_levels = keep
     try:
-        trainer.run(1)
+        one_step()
         torch.cuda.synchronize()
     finally:
         hashgrid.scatter_levels = dispatch
@@ -660,7 +664,7 @@ def run_path(label: str, cfg, pcfg, steps: int, card: str, require_groups=()):
     for k, v in end.items():
         check(not k.startswith("illumination_decoder/") or torch.equal(start[k], v), f"frozen {k} changed")
     log(f"{label} trainable groups changed: " + ", ".join(changed) + "; the decoder stayed frozen")
-    captured = capture_k1_inputs(trainer)
+    captured = capture_k1_inputs(lambda: trainer.run(1))
     profile_call(lambda: trainer.run(1), steady, card, f"{label} step")
     return launches, captured
 
@@ -1260,56 +1264,51 @@ ALL_SLICE_KNOBS = {**BENCH_KNOBS, "NEUSKY_FUSED_GT": "1", "NEUSKY_VIS_REMAT": "d
 SDF_QUERY_CHUNK = 16384  # the level-set query's 1,024 × 64 points in 4 launches
 BENCH_WARMUP, BENCH_STEPS = 3, 4
 SPLIT_AB_STEPS = 12  # timed steps of each run of split_ab
+# the variables knobs_set controls: the model knobs and the bench's own
+BENCH_ENV = (*env_overrides.KNOBS, "NEUSKY_BENCH_NATIVE", "NEUSKY_BENCH_SPLIT")
 
 
 @contextlib.contextmanager
 def knobs_set(knobs):
-    """Exactly ``knobs`` among the ``NEUSKY_*`` variables inside the block;
-    the environment as it was after it."""
-    saved = {k: os.environ.pop(k, None) for k in env_overrides.KNOBS}
+    """Exactly ``knobs`` among the :data:`BENCH_ENV` variables inside the
+    block; the environment as it was after it."""
+    saved = {k: os.environ.pop(k, None) for k in BENCH_ENV}
     os.environ.update(knobs)
     try:
         yield
     finally:
-        for k in env_overrides.KNOBS:
+        for k in BENCH_ENV:
             os.environ.pop(k, None)
             if saved[k] is not None:
                 os.environ[k] = saved[k]
 
 
-def bench_pipeline() -> PipelineConfig:
-    """``bench.py:91-97``: 8 × 128 vMF rays at κ = 20, 256 sky rays."""
-    return PipelineConfig(visibility_train_sampler=DDFSamplerConfig(
-        num_samples_on_sphere=8, num_rays_per_sample=128, only_sample_upper_hemisphere=True, concentration=20.0),
-        num_sky_rays=256)
-
-
 def run_bench_config(label: str, knobs, sdf_query_chunk: int, card: str, split: bool = False, save_to=None,
                      steps: int = BENCH_STEPS):
-    """What ``bench.py:85-118`` builds, with ``knobs`` set (and restored
-    after): ``apply_env_knobs(neusky_model_config(8, 2))``, bench's pipeline,
-    the synthetic scene (8 cameras, 64×64) with 8 × 128 rays a step from
-    the native sampler, the converted prior and the five Adam groups for
-    100,001 steps; with ``split`` the trainer takes the split step
-    (``use_split_step``).  BENCH_WARMUP steps, then ``steps`` timed steps
-    (each synchronised); K1's count zeroed before and read after every
-    step; then one step keeping K1's inputs and one profiled step; with
-    ``save_to`` the trainer's checkpoint is written there."""
-    with knobs_set(knobs):
-        cfg = dataclasses.replace(env_overrides.apply_env_knobs(neusky_model_config(8, 2)),
-                                  sdf_query_chunk=sdf_query_chunk)
+    """The port's bench (``neusky_torch.bench.build``, what ``bench.py:85-118``
+    builds) with ``knobs`` set (and restored after), the level-set query in
+    chunks of ``sdf_query_chunk`` points, and with ``split`` the split step
+    (``NEUSKY_BENCH_SPLIT``).  BENCH_WARMUP steps, then ``steps`` timed
+    steps (each synchronised, on a fresh batch); K1's count zeroed before
+    and read after every step; then one step keeping K1's inputs and one
+    profiled step; with ``save_to`` the checkpoint is written there."""
+    with knobs_set({**knobs, **({"NEUSKY_BENCH_SPLIT": "1"} if split else {})}):
+        cfg = dataclasses.replace(bench.model_config(), sdf_query_chunk=sdf_query_chunk)
         log(f"{label}: knobs " + json.dumps(env_overrides.knob_summary()) + f", sdf_query_chunk {sdf_query_chunk}; "
             "effective " + json.dumps(env_overrides.effective_summary(cfg)))
-        pcfg = bench_pipeline()
-        scene = generate_synthetic_scene(SyntheticSceneConfig(num_cameras=8, width=64, height=64))
-        dm = DataManager(DataManagerConfig(pixel_sampler=PixelSamplerConfig(images_per_batch=8, rays_per_image=128),
-                                           num_sky_rays=256, use_native_sampler=True),
-                         scene["cameras"], scene["images"], scene["masks"], device="cuda")
-        trainer = Trainer(TrainerConfig(max_num_iterations=100001, steps_per_log=1, seed=0, use_split_step=split),
-                          NeuSkyModel(cfg, device="cuda"), pcfg, dm,
-                          optimizer_groups=default_neusky_optimizer_groups(100001), device="cuda")
-        n_rays, n_counted = 8 * 128, trainer._count_rays(dm.next_train(0))
-        expected = expected_launches_per_step(cfg, pcfg, n_rays)
+        b = bench.build("cuda", cfg)
+        n_rays, n_counted = 8 * 128, b.rays_per_step
+        expected = expected_launches_per_step(cfg, b.pipeline, n_rays)
+        history = []
+
+        def train_step():
+            s = len(history)
+            aux = b.step(b.params, b.datamanager.next_train(s), float(s), generator=b.generator)
+            history.append({"step": s + 1, "total_loss": float(aux["total_loss"]),
+                            **{k: float(v) for k, v in aux["metrics"].items()},
+                            **{k: float(v) for k, v in aux["loss_dict"].items()}})
+            return history[-1]
+
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         k1.launches[k1.KERNEL_NAME] = 0
@@ -1318,7 +1317,7 @@ def run_bench_config(label: str, knobs, sdf_query_chunk: int, card: str, split: 
             before = k1_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            rec = trainer.run(1)[-1]
+            rec = train_step()
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             per_step.append(k1_launches() - before)
@@ -1333,13 +1332,12 @@ def run_bench_config(label: str, knobs, sdf_query_chunk: int, card: str, split: 
         log(f"{label} steady step (mean of {steps} after {BENCH_WARMUP} warm-up): {steady * 1e3:.3f} ms, "
             f"{n_rays / steady:.1f} scene rays/s, {n_counted / steady:.1f} counted rays/s; peak device memory "
             f"{peak:.3f} GiB ({card})")
-        captured = capture_k1_inputs(trainer)
-        prof = profile_call(lambda: trainer.run(1), steady, card, f"{label} step")
-        sites = check_k1_main_path_inputs(cfg, pcfg, n_rays, captured)
+        captured = capture_k1_inputs(train_step)
+        prof = profile_call(train_step, steady, card, f"{label} step")
+        sites = check_k1_main_path_inputs(cfg, b.pipeline, n_rays, captured)
         if save_to is not None:
-            trainer.save(str(save_to))
-        history = list(trainer.history)
-        del captured, trainer, dm
+            save_checkpoint(Path(save_to), len(history), b.params, b.optimizer.state_dict())
+        del captured, b
     return {"label": label, "steady_ms": steady * 1e3, "scene_rays_per_s": n_rays / steady,
             "counted_rays_per_s": n_counted / steady, "peak_gib": peak, "k1_per_step": expected,
             "k1_launches": launches, "busy_share": prof and prof["busy_share"],
@@ -2003,7 +2001,7 @@ def split_ab() -> int:
         print("split_ab: CUDA is not available", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
-    card = nvidia_smi_line()
+    card = bench.card_line()
     build_all()
     keys = ("label", "steady_ms", "busy_share", "device_ms", "peak_gib", "k1_per_step")
     runs = []
@@ -2029,18 +2027,12 @@ MESH_GRAD_REL = {"ddf_field": 5e-3}
 
 
 def mesh_setup(device):
-    """(config, pipeline, datamanager) of phase 13: phase 10's (a),
-    ``apply_env_knobs(neusky_model_config(8, 2))`` with
-    ``NEUSKY_BF16_MAPPING=1``, bench's pipeline and data (the synthetic
-    scene, 8 cameras at 64×64, 8 × 128 rays and 256 sky rays a step from
-    the native sampler)."""
+    """(config, pipeline, datamanager) of phase 13: the port's bench
+    (``neusky_torch.bench``) under phase 10's (a) knobs: its model config,
+    pipeline and data (the synthetic scene, 8 cameras at 64×64, 8 × 128
+    rays and 256 sky rays a step from the native sampler)."""
     with knobs_set(BENCH_KNOBS):
-        cfg, pcfg = env_overrides.apply_env_knobs(neusky_model_config(8, 2)), bench_pipeline()
-    scene = generate_synthetic_scene(SyntheticSceneConfig(num_cameras=8, width=64, height=64))
-    dm = DataManager(DataManagerConfig(pixel_sampler=PixelSamplerConfig(8, 128), num_sky_rays=256,
-                                       use_native_sampler=True),
-                     scene["cameras"], scene["images"], scene["masks"], device=device)
-    return cfg, pcfg, dm
+        return bench.model_config(), bench.pipeline(), bench.datamanager(device)
 
 
 def mesh_check_config(cfg):
@@ -2154,8 +2146,11 @@ def mesh_rank(rank, world_size, init_method, dirs, backend, work):
     reference's batch and draws (rank 0 holds its gradient and params to
     the one-process step's, :func:`mesh_compare`), then ``Trainer(mesh=)``
     on bench's data for MESH_WARMUP + MESH_STEPS steps, K1, the DDF's
-    visibility queries, the step's wall time and the gradient all-reduce's
-    time counted every step → this rank's numbers."""
+    visibility queries, the step's wall time, the gradient all-reduce's
+    time and the batch broadcast's time counted every step → this rank's
+    numbers."""
+    from neusky_torch.engine import trainer as trainer_module
+
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = f"cuda:{rank}" if backend == "nccl" else "cuda"
     mesh = mesh_mod.make_mesh(world_size, dirs, backend=backend, rank=rank, init_method=init_method, device=dev)
@@ -2173,23 +2168,26 @@ def mesh_rank(rank, world_size, init_method, dirs, backend, work):
 
     trainer = Trainer(TrainerConfig(max_num_iterations=100001, steps_per_log=1, seed=0), NeuSkyModel(cfg, device=dev),
                       pcfg, dm, optimizer_groups=default_neusky_optimizer_groups(100001), device=dev, mesh=mesh)
-    reduce_s = [0.0]
-    average = mesh_mod.average_grads
+    reduce_s, broadcast_s = [0.0], [0.0]
+    average, replicate = mesh_mod.average_grads, trainer_module.replicate
 
-    def timed_average(*a, **k):
-        torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        r = average(*a, **k)
-        torch.cuda.synchronize(dev)
-        reduce_s[0] += time.perf_counter() - t0
-        return r
+    def timed(fn, acc):
+        def run(*a, **k):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            r = fn(*a, **k)
+            torch.cuda.synchronize(dev)
+            acc[0] += time.perf_counter() - t0
+            return r
+        return run
 
-    mesh_mod.average_grads = timed_average
-    times, launches, queries, reduce_ms, losses = [], [], [], [], []
+    # the trainer's per-step batch broadcast goes through its module's name
+    mesh_mod.average_grads, trainer_module.replicate = timed(average, reduce_s), timed(replicate, broadcast_s)
+    times, launches, queries, reduce_ms, broadcast_ms, losses = [], [], [], [], [], []
     try:
         with count_visibility_queries(trainer.model) as q:
             for _ in range(MESH_WARMUP + MESH_STEPS):
-                before, q[0], reduce_s[0] = k1_launches(), 0, 0.0
+                before, q[0], reduce_s[0], broadcast_s[0] = k1_launches(), 0, 0.0, 0.0
                 torch.cuda.synchronize(dev)
                 t0 = time.perf_counter()
                 rec = trainer.run(1)[-1]
@@ -2198,14 +2196,16 @@ def mesh_rank(rank, world_size, init_method, dirs, backend, work):
                 launches.append(k1_launches() - before)
                 queries.append(q[0])
                 reduce_ms.append(reduce_s[0] * 1e3)
+                broadcast_ms.append(broadcast_s[0] * 1e3)
                 losses.append(rec["total_loss"])
     finally:
-        mesh_mod.average_grads = average
+        mesh_mod.average_grads, trainer_module.replicate = average, replicate
     steady = times[MESH_WARMUP:]
     out.update(
         digest=tree_digest(trainer.params), launches=launches, queries=queries, losses=losses,
         step_ms=[t * 1e3 for t in times], steady_ms=float(np.mean(steady)) * 1e3,
         allreduce_ms=float(np.mean(reduce_ms[MESH_WARMUP:])),
+        broadcast_ms=float(np.mean(broadcast_ms[MESH_WARMUP:])),
         peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
         rays=int(mesh_mod.shard_batch(ref["batch"], mesh)["pixel_coords"].shape[0]),
     )
@@ -2280,20 +2280,79 @@ def run_mesh_path(card: str):
             for r in ranks:
                 log(f"phase 13 {label} rank {r['rank']}: steady {r['steady_ms']:.3f} ms a step (steps "
                     + json.dumps([round(t, 1) for t in r["step_ms"]]) + f"), all-reduce {r['allreduce_ms']:.3f} ms a "
-                    f"step, peak {r['peak_gib']:.3f} GiB, K1 {r['launches'][-1]} a step, DDF queries "
-                    f"{r['queries'][-1]} a step, {r['rays']} rays ({card})")
+                    f"step, batch broadcast {r['broadcast_ms']:.3f} ms a step, peak {r['peak_gib']:.3f} GiB, K1 "
+                    f"{r['launches'][-1]} a step, DDF queries {r['queries'][-1]} a step, {r['rays']} rays ({card})")
             summary = {"run": label, "ranks": world, "data": data, "dirs": dirs, "backend": backend,
                        "check_loss": r0["check_loss"], "one_process_loss": total,
                        "loss_rel_err": abs(r0["check_loss"] - total) / abs(total),
                        "grad_worst_over_allowance_by_group": r0["grad_worst"],
                        "param_worst_abs_by_group": r0["param_worst"],
                        "steady_ms": [r["steady_ms"] for r in ranks], "allreduce_ms": [r["allreduce_ms"] for r in ranks],
+                       "broadcast_ms": [r["broadcast_ms"] for r in ranks],
                        "peak_gib": [r["peak_gib"] for r in ranks], "k1_per_step": expected,
                        "ddf_queries_per_step": [r["queries"][-1] for r in ranks], "wall_s": wall}
             results[label] = summary
             log("phase 13 " + json.dumps(summary))
     log(f"phase 13 took {time.perf_counter() - t_phase:.3f} s")
     return results
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the port's bench; phase 15: entry()
+
+
+BENCH_CHILD_ENV = {"NEUSKY_BENCH_STEPS": "4", "NEUSKY_BENCH_REPEATS": "1"}
+BENCH_RAYS_PER_STEP = 8 * 128 + 8 * 128 + 256  # scene + DDF-fit + sky
+ENTRY_REL = 1e-4  # phase 3's loss bound, of each output's largest magnitude
+
+
+def run_bench_module(card: str) -> dict:
+    """Phase 14: ``python -m neusky_torch.bench`` in a child process with
+    BENCH_CHILD_ENV: its last line is one JSON object with JAX's bench
+    fields, a finite positive ``value``, 2,304 rays a step and this card's
+    ``nvidia-smi`` line."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "neusky_torch.bench"], cwd=Path(__file__).resolve().parent,
+                          env={**os.environ, **BENCH_CHILD_ENV}, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"neusky_torch.bench exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    line = proc.stdout.strip().splitlines()[-1]
+    out = json.loads(line)
+    keys = {"metric", "value", "unit", "absolute_rays_per_sec", "chip", "loop_rates", "stddev", "loadavg_before",
+            "loadavg_after", "steps_per_loop", "effective", "rays_per_step", "peak_gib"}
+    check(keys <= set(out) and "vs_baseline" not in out, f"bench line keys {sorted(out)}")
+    check(out["metric"] == bench.METRIC and math.isfinite(out["value"]) and out["value"] > 0,
+          f"bench value {out['value']}")
+    check(out["rays_per_step"] == BENCH_RAYS_PER_STEP, f"bench rays a step {out['rays_per_step']}")
+    check(out["chip"] == card and out["steps_per_loop"] == 4 and len(out["loop_rates"]) == 1,
+          f"bench chip {out['chip']!r}, steps {out['steps_per_loop']}, loops {out['loop_rates']}")
+    log(f"phase 14 bench ({json.dumps(BENCH_CHILD_ENV)}; {time.perf_counter() - t0:.3f} s): {line}")
+    return out
+
+
+def check_entry_cuda_vs_cpu(card: str) -> dict:
+    """Phase 15: ``entry()``'s forward (the tiny model's eval-mode forward)
+    on the card and on the CPU from the same params, rays and draws (the
+    eval forward's: none): rgb, depth, normal and accumulation within
+    ENTRY_REL of each output's largest magnitude on the CPU; K1 0 (no
+    backward)."""
+    from neusky_torch.entry import entry
+
+    fn_cpu, (params, _, rb, image_indices, ray_image_idx) = entry("cpu")
+    fn_card, _ = entry("cuda")
+    want = [o.detach() for o in fn_cpu(params, {}, rb, image_indices, ray_image_idx)]
+    k1.launches[k1.KERNEL_NAME] = 0
+    rb_card = RayBundle(**{f.name: getattr(rb, f.name).cuda() for f in dataclasses.fields(RayBundle)})
+    got = [o.detach().cpu() for o in fn_card(_to(params, "cuda"), {}, rb_card, image_indices.cuda(),
+                                             ray_image_idx.cuda())]
+    torch.cuda.synchronize()
+    errs = {name: float((g - w).abs().max()) / max(float(w.abs().max()), 1e-6)
+            for name, g, w in zip(("rgb", "depth", "normal", "accumulation"), got, want)}
+    log(f"phase 15 entry(): card vs CPU, largest error over each output's largest magnitude {json.dumps(errs)} "
+        f"(bound {ENTRY_REL}); K1 launches {k1_launches()}; rgb {tuple(got[0].shape)} ({card})")
+    check(all(g.shape == w.shape and bool(torch.isfinite(g).all()) for g, w in zip(got, want)), "entry(): outputs")
+    check(all(e <= ENTRY_REL for e in errs.values()), f"entry(): card vs CPU {errs}")
+    check(k1_launches() == 0, f"entry(): K1 launched {k1_launches()} times")
+    return errs
 
 
 def mesh_path() -> int:
@@ -2305,7 +2364,7 @@ def mesh_path() -> int:
         print("mesh_path: CUDA is not available", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
-    card = nvidia_smi_line()
+    card = bench.card_line()
     build_all()
     run_mesh_path(card)
     print(card)
@@ -2322,7 +2381,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = nvidia_smi_line()
+    card = bench.card_line()
     log(f"device: {torch.cuda.get_device_name(0)} (count {torch.cuda.device_count()}); nvidia-smi: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     build_all()
@@ -2344,16 +2403,19 @@ def main() -> int:
     run_reni_prior(card)
     check_reni_cuda_vs_cpu(card)
     log(f"phase 9 took {time.perf_counter() - t9:.3f} s; the script so far {time.perf_counter() - t_start:.3f} s")
-    bench = run_bench_path(card)
+    bench_runs = run_bench_path(card)
     run_tools_path(card)
-    split = run_variants_path(card, bench[0])
+    split = run_variants_path(card, bench_runs[0])
     run_mesh_path(card)
+    run_bench_module(card)
+    check_entry_cuda_vs_cpu(card)
     joint_k1 = {k: sum(r[k] for r in sites) for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
     log(f"phase 5's joint step K1 (unfused, float32 mapping): {main_launches} launches in {STEPS} steps, "
         + json.dumps(joint_k1) + " ms a step")
-    log(f"phase 10's (b) K1: {bench[1]['k1_launches']} launches in {BENCH_WARMUP + BENCH_STEPS} steps, "
-        + json.dumps({k: bench[1][k] for k in ("k1_ms_per_step", "k1_bound_ms_per_step", "k1_index_add_ms_per_step")})
-        + " a step, shapes " + json.dumps([[r["L"], r["M"]] for r in bench[1]["sites"]]))
+    log(f"phase 10's (b) K1: {bench_runs[1]['k1_launches']} launches in {BENCH_WARMUP + BENCH_STEPS} steps, "
+        + json.dumps({k: bench_runs[1][k]
+                      for k in ("k1_ms_per_step", "k1_bound_ms_per_step", "k1_index_add_ms_per_step")})
+        + " a step, shapes " + json.dumps([[r["L"], r["M"]] for r in bench_runs[1]["sites"]]))
     # the kernels line: K1 per step of the main path, the split
     # step in bench's configuration (a), on the inputs one of its steps gave K1
     main_path = split
@@ -2376,7 +2438,7 @@ def main() -> int:
         "shapes": [[r["L"], r["M"]] for r in sites],
     }]
     log(json.dumps({"kernels": kernels}))
-    log(nvidia_smi_line())
+    log(bench.card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -1,11 +1,19 @@
-// Native batch sampler + prefetcher for the neusky_tpu data pipeline.
+// Native batch sampler + prefetcher for the neusky_torch data pipeline: the
+// JAX package's native/batch_sampler.cpp, whose prefetch thread here also
+// draws the sky rays.
 //
-// TPU-native equivalent of the reference's data stack hot path
-// (nerfstudio CacheDataloader worker processes + NeuSkyPixelSampler
-// rejection sampling, neusky_pixel_sampler.py:28-124): per-image
-// valid/sky pixel index tables are built once in C++, and fixed-shape
-// [U images x R rays] batches are drawn by a background prefetch thread
-// into a ring buffer, so host batch assembly fully overlaps TPU compute.
+// Per-image valid/sky pixel index tables are built once in C++, and
+// fixed-shape [U images x R rays] batches are drawn by a background
+// prefetch thread into a ring buffer, so host batch assembly overlaps the
+// device's step (the reference's CacheDataloader workers + NeuSkyPixelSampler
+// rejection sampling, neusky_pixel_sampler.py:28-124).
+//
+// One xorshift128+ stream feeds every draw. While the prefetch thread runs
+// it alone advances that stream: it draws each batch's sky rays right after
+// the batch's pixels, so the prefetched stream is the synchronous one
+// (sampler_sample_batch, then sampler_sample_sky) draw for draw, whatever
+// the two threads' timing. sampler_sample_batch and sampler_sample_sky are
+// for a sampler that does not prefetch.
 //
 // C ABI (ctypes); no Python objects cross the boundary. All buffers are
 // caller-owned numpy arrays.
@@ -47,6 +55,8 @@ struct Batch {
   std::vector<int64_t> flat_pixels;  // [U*R]
   std::vector<float> rgb;            // [U*R*3]
   std::vector<float> mask;           // [U*R*4]
+  std::vector<int32_t> sky_rows;     // [S]
+  std::vector<int64_t> sky_pixels;   // [S]
 };
 
 struct Sampler {
@@ -67,7 +77,7 @@ struct Sampler {
   std::condition_variable cv_full, cv_empty;
   std::queue<Batch*> ready;
   int queue_depth = 4;
-  int pf_u = 0, pf_r = 0;
+  int pf_u = 0, pf_r = 0, pf_sky = 0;
   std::atomic<bool> stop{false};
 
   explicit Sampler(uint64_t seed) : rng(seed) {}
@@ -122,10 +132,23 @@ struct Sampler {
     }
   }
 
+  // Sky rays: uniform over (image, sky pixel) pairs.
+  void fill_sky(int n, int32_t* image_rows, int64_t* flat_pixels) {
+    for (int i = 0; i < n; i++) {
+      int img = (int)rng.bounded(num_images);
+      const auto& table = sky_idx[img];
+      image_rows[i] = img;
+      flat_pixels[i] = table.empty() ? 0 : table[rng.bounded(table.size())];
+    }
+  }
+
   void prefetch_loop() {
     while (!stop.load()) {
       Batch* b = new Batch();
       fill_batch(b, pf_u, pf_r);
+      b->sky_rows.resize(pf_sky);
+      b->sky_pixels.resize(pf_sky);
+      fill_sky(pf_sky, b->sky_rows.data(), b->sky_pixels.data());
       std::unique_lock<std::mutex> lk(mu);
       cv_full.wait(lk, [&] { return (int)ready.size() < queue_depth || stop.load(); });
       if (stop.load()) {
@@ -175,27 +198,25 @@ void sampler_sample_batch(void* handle, int u, int r, int32_t* image_rows,
 // Sky rays: uniform over (image, sky pixel) pairs.
 void sampler_sample_sky(void* handle, int n, int32_t* image_rows,
                         int64_t* flat_pixels) {
-  auto* s = static_cast<Sampler*>(handle);
-  for (int i = 0; i < n; i++) {
-    int img = (int)s->rng.bounded(s->num_images);
-    const auto& table = s->sky_idx[img];
-    image_rows[i] = img;
-    flat_pixels[i] = table.empty() ? 0 : table[s->rng.bounded(table.size())];
-  }
+  static_cast<Sampler*>(handle)->fill_sky(n, image_rows, flat_pixels);
 }
 
-// Background prefetching into a ring buffer.
-void sampler_start_prefetch(void* handle, int u, int r, int queue_depth) {
+// Background prefetching into a ring buffer: each batch of u x r rays and
+// then its n_sky sky rays.
+void sampler_start_prefetch(void* handle, int u, int r, int n_sky,
+                            int queue_depth) {
   auto* s = static_cast<Sampler*>(handle);
   s->pf_u = u;
   s->pf_r = r;
+  s->pf_sky = n_sky;
   s->queue_depth = queue_depth;
   s->worker = std::thread([s] { s->prefetch_loop(); });
 }
 
-// Pop one prefetched batch (blocks until available).
+// Pop one prefetched batch and its sky rays (blocks until available).
 void sampler_next_batch(void* handle, int32_t* image_rows, int64_t* flat_pixels,
-                        float* rgb, float* mask) {
+                        float* rgb, float* mask, int32_t* sky_rows,
+                        int64_t* sky_pixels) {
   auto* s = static_cast<Sampler*>(handle);
   Batch* b = nullptr;
   {
@@ -211,6 +232,10 @@ void sampler_next_batch(void* handle, int32_t* image_rows, int64_t* flat_pixels,
   std::memcpy(flat_pixels, b->flat_pixels.data(), (size_t)u * r * sizeof(int64_t));
   std::memcpy(rgb, b->rgb.data(), (size_t)u * r * 3 * sizeof(float));
   std::memcpy(mask, b->mask.data(), (size_t)u * r * 4 * sizeof(float));
+  if (!b->sky_rows.empty()) {
+    std::memcpy(sky_rows, b->sky_rows.data(), b->sky_rows.size() * sizeof(int32_t));
+    std::memcpy(sky_pixels, b->sky_pixels.data(), b->sky_pixels.size() * sizeof(int64_t));
+  }
   delete b;
 }
 

@@ -3,8 +3,8 @@ train split and an optional eval split, emits per-step training batches as
 tensors on its device, full-image eval bundles, and the region batches of
 test-time latent fitting.  Training batches come from the numpy
 ``PixelSampler`` or, with ``use_native_sampler``, from the C++ sampler and
-its prefetch thread (``data/native_sampler.py``), which raises where it
-cannot be built."""
+its prefetch thread (``data/native_sampler.py``), which draws each batch's
+sky rays after its pixels and raises where it cannot be built."""
 
 from __future__ import annotations
 
@@ -28,7 +28,8 @@ class DataManagerConfig:
     seed: int = 0
     use_native_sampler: bool = False
     """Draw training batches and sky rays from the C++ sampler, whose thread
-    prefetches ``native_queue_depth`` batches while the step runs."""
+    prefetches ``native_queue_depth`` batches, each with its sky rays, while
+    the step runs."""
     native_queue_depth: int = 4
 
 
@@ -79,7 +80,8 @@ class DataManager:
             self._native.close()
         self._native = NativeBatchSampler(self.train_images, self.train_masks, seed=seed)
         self._native_u = min(ps.images_per_batch, self.num_train)
-        self._native.start_prefetch(self._native_u, ps.rays_per_image, self.config.native_queue_depth)
+        n_sky = self.config.num_sky_rays if self._native.has_sky else 0
+        self._native.start_prefetch(self._native_u, ps.rays_per_image, self.config.native_queue_depth, n_sky)
 
     def reseed(self, step: int) -> None:
         """Move the training batch stream to a resume step: the stream of
@@ -94,7 +96,7 @@ class DataManager:
     def next_train(self, step: int = 0) -> Dict:
         """Scene batch + sky-ray pixels, on the device."""
         if self._native is not None:
-            batch, sky = self._native_batch(), self._native_sky()
+            batch, sky = self._native_batch()
         else:
             batch = self.train_sampler.sample_batch()
             sky = self.train_sampler.sample_sky_rays(self.config.num_sky_rays)
@@ -106,11 +108,12 @@ class DataManager:
         w = self._native.width
         return np.stack([(pixels // w).astype(np.float32) + 0.5, (pixels % w).astype(np.float32) + 0.5], axis=-1)
 
-    def _native_batch(self) -> Dict:
-        """The next prefetched native batch in the numpy sampler's layout."""
+    def _native_batch(self):
+        """The next prefetched native batch in the numpy sampler's layout,
+        and its sky rays (None where a training image has no sky pixel)."""
         u, r = self._native_u, self.config.pixel_sampler.rays_per_image
-        rows, pixels, rgb, mask = self._native.next_batch()
-        return {
+        rows, pixels, rgb, mask, *sky = self._native.next_batch()
+        batch = {
             "image_indices": rows.astype(np.int32),
             "ray_image_idx": np.repeat(np.arange(u, dtype=np.int32), r),
             "cam_idx": np.repeat(rows, r).astype(np.int32),
@@ -118,12 +121,7 @@ class DataManager:
             "image": rgb,
             "mask": mask,
         }
-
-    def _native_sky(self):
-        if not self._native.has_sky:
-            return None
-        rows, pixels = self._native.sample_sky(self.config.num_sky_rays)
-        return rows.astype(np.int32), self._native_pixel_coords(pixels)
+        return batch, (sky[0], self._native_pixel_coords(sky[1])) if sky else None
 
     def _eval_split(self):
         if self.eval_cameras is not None:

@@ -1,22 +1,23 @@
 """ctypes binding of the C++ batch sampler and prefetcher (mirror of
 ``neusky_tpu/data/native_sampler.py``).
 
-``csrc/batch_sampler.cpp`` (a copy of the JAX package's
-``native/batch_sampler.cpp``) builds per-image tables of static and sky
-pixels, draws fixed-shape [U images × R rays] batches and sky rays from one
-xorshift128+ stream, and fills a ring buffer of batches from a background
-thread.  Given the same seed and the same calls it draws what the JAX
-package's binding draws.
+``csrc/batch_sampler.cpp`` (the JAX package's ``native/batch_sampler.cpp``
+with the sky rays drawn by the prefetch thread) builds per-image tables of
+static and sky pixels, draws fixed-shape [U images × R rays] batches and
+sky rays from one xorshift128+ stream, and fills a ring buffer of batches
+from a background thread.  Given the same seed and the same synchronous
+calls it draws what the JAX package's binding draws.
 
 The library is built with ``g++`` at first use into ``neusky_torch/_build/``
 (its name keyed by the source's hash).  Where it cannot be built this module
 raises: a run that asked for the native sampler never runs the numpy one
 instead (the JAX package falls back to it).
 
-The sky draws and the prefetch thread share the one stream without a lock
-(in the C++ source, as in JAX's), so once prefetching has started, the
-batches and sky rays that ``DataManager.next_train`` gets depend on how the
-two threads interleave.
+Once prefetching has started, the prefetch thread alone advances the
+stream: it draws each batch and then that batch's sky rays, so the
+prefetched stream equals the synchronous one (``sample_batch``, then
+``sample_sky``) draw for draw, however the caller paces its calls.  (JAX's
+source draws the sky on the caller's thread, racing its prefetch thread.)
 """
 
 from __future__ import annotations
@@ -82,9 +83,9 @@ def _load() -> ctypes.CDLL:
     lib.sampler_sample_sky.restype = None
     lib.sampler_sample_sky.argtypes = [ctypes.c_void_p, ctypes.c_int, i32p, i64p]
     lib.sampler_start_prefetch.restype = None
-    lib.sampler_start_prefetch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.sampler_start_prefetch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.sampler_next_batch.restype = None
-    lib.sampler_next_batch.argtypes = [ctypes.c_void_p, i32p, i64p, f32p, f32p]
+    lib.sampler_next_batch.argtypes = [ctypes.c_void_p, i32p, i64p, f32p, f32p, i32p, i64p]
     _lib = lib
     return lib
 
@@ -107,7 +108,7 @@ class NativeBatchSampler:
         self.num_images, self.height, self.width = c, h, w
         self._handle = self._lib.sampler_create(
             _ptr(self._images, ctypes.c_float), _ptr(self._masks, ctypes.c_float), c, h, w, seed)
-        self._prefetching: Optional[Tuple[int, int]] = None
+        self._prefetching: Optional[Tuple[int, int, int]] = None
 
     def close(self) -> None:
         """Stop the prefetch thread and free the native state."""
@@ -133,27 +134,34 @@ class NativeBatchSampler:
                 _ptr(mask, ctypes.c_float))
 
     def sample_batch(self, u: int, r: int):
-        """One batch drawn now, on the calling thread."""
+        """One batch drawn now, on the calling thread (not while
+        prefetching)."""
         out = self._alloc(u, r)
         self._lib.sampler_sample_batch(self._handle, u, r, *self._ptrs(*out))
         return out
 
     def sample_sky(self, n: int):
-        """(image rows [n] int32, flat sky pixels [n] int64)."""
+        """(image rows [n] int32, flat sky pixels [n] int64), drawn now on
+        the calling thread (not while prefetching)."""
         rows, pixels = np.empty(n, np.int32), np.empty(n, np.int64)
         self._lib.sampler_sample_sky(self._handle, n, _ptr(rows, ctypes.c_int32), _ptr(pixels, ctypes.c_int64))
         return rows, pixels
 
-    def start_prefetch(self, u: int, r: int, queue_depth: int = 4) -> None:
+    def start_prefetch(self, u: int, r: int, queue_depth: int = 4, num_sky: int = 0) -> None:
         """Start the background thread that keeps ``queue_depth`` batches of
-        U × R ready."""
-        self._lib.sampler_start_prefetch(self._handle, u, r, queue_depth)
-        self._prefetching = (u, r)
+        U × R ready, each followed by its ``num_sky`` sky rays."""
+        self._lib.sampler_start_prefetch(self._handle, u, r, num_sky, queue_depth)
+        self._prefetching = (u, r, num_sky)
 
     def next_batch(self):
-        """The next prefetched batch (waits for one)."""
+        """The next prefetched batch (waits for one): image rows, flat
+        pixels, rgb and mask, then, when prefetching with sky rays, their
+        image rows [S] int32 and flat pixels [S] int64."""
         if self._prefetching is None:
             raise RuntimeError("next_batch before start_prefetch")
-        out = self._alloc(*self._prefetching)
-        self._lib.sampler_next_batch(self._handle, *self._ptrs(*out))
-        return out
+        u, r, n_sky = self._prefetching
+        out = self._alloc(u, r)
+        sky = (np.empty(n_sky, np.int32), np.empty(n_sky, np.int64))
+        self._lib.sampler_next_batch(self._handle, *self._ptrs(*out), _ptr(sky[0], ctypes.c_int32),
+                                     _ptr(sky[1], ctypes.c_int64))
+        return out + sky if n_sky else out

@@ -6,11 +6,13 @@ Entry point: runs on ``device`` (default CUDA; raises without a card unless
 With ``mesh`` (:func:`~neusky_torch.parallel.mesh.make_mesh`) the trainer
 is one rank of a multi-device run: every rank builds it alike (the same
 config, seed and data), the parameters are broadcast from rank 0, rank 0's
-batch is broadcast every step (the native sampler's prefetch may give the
-ranks different ones) and each rank trains on its shard
+batch is broadcast every step (though the samplers' streams, the native
+one's prefetched stream included, agree on every rank) and each rank
+trains on its shard
 (:func:`~neusky_torch.parallel.mesh.shard_batch`).  Every rank runs the
-eval passes, whose visibility may split over the ``dirs`` axis; rank 0
-alone logs, writes and saves, and its checkpoint resumes in one process."""
+eval passes as one process does, with the model off its mesh, as every
+JAX process runs them; rank 0 alone logs, writes and saves, and its
+checkpoint resumes in one process."""
 
 from __future__ import annotations
 
@@ -36,6 +38,24 @@ from neusky_torch.parallel.mesh import (
     replicate,
     shard_batch,
 )
+
+
+def count_rays(model: NeuSkyModel, pipeline_config: PipelineConfig, batch) -> int:
+    """Rays of one step, by the JAX loop's rule: the scene rays, plus the
+    DDF-fit rays when the visibility field is fitted, plus the sky rays
+    (1,024 + 1,024 + 256 = 2,304 for the canonical joint step)."""
+    if "ray_bundle" in batch:
+        n = int(batch["ray_bundle"].origins.shape[0])
+    else:
+        n = int(batch["pixel_coords"].shape[0])
+    if model.config.fit_visibility_field and model.ddf is not None:
+        s = pipeline_config.visibility_train_sampler
+        n += s.num_samples_on_sphere * s.num_rays_per_sample
+    if "sky_ray_bundle" in batch:
+        n += int(batch["sky_ray_bundle"].origins.shape[0])
+    elif "sky_cam_idx" in batch:
+        n += int(batch["sky_cam_idx"].shape[0])
+    return n
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,21 +112,7 @@ class Trainer:
         return self
 
     def _count_rays(self, batch) -> int:
-        """Rays of one step, by the JAX loop's rule: the scene rays, plus the
-        DDF-fit rays when the visibility field is fitted, plus the sky rays
-        (1,024 + 1,024 + 256 = 2,304 for the canonical joint step)."""
-        if "ray_bundle" in batch:
-            n = int(batch["ray_bundle"].origins.shape[0])
-        else:
-            n = int(batch["pixel_coords"].shape[0])
-        if self.model.config.fit_visibility_field and self.model.ddf is not None:
-            s = self.pipeline_config.visibility_train_sampler
-            n += s.num_samples_on_sphere * s.num_rays_per_sample
-        if "sky_ray_bundle" in batch:
-            n += int(batch["sky_ray_bundle"].origins.shape[0])
-        elif "sky_cam_idx" in batch:
-            n += int(batch["sky_cam_idx"].shape[0])
-        return n
+        return count_rays(self.model, self.pipeline_config, batch)
 
     def run(self, num_steps: Optional[int] = None, log_fn: Optional[Callable] = None):
         """Run ``num_steps`` steps (default: to the configured maximum):
@@ -147,21 +153,27 @@ class Trainer:
     def _eval_image_pass(self):
         """Fit the eval latents of every eval image (the training params
         untouched), render one eval image (the next in turn) and score it;
-        with a writer, write the scores and the eval panels."""
+        with a writer, write the scores and the eval panels.  On a mesh the
+        model leaves it for the pass (every rank holds the eval batches
+        whole and runs the one-process pass) and goes back on it after."""
         image_idx = (self.step // self.config.steps_per_eval_image - 1) % max(self.datamanager.num_eval, 1)
-        params, _ = fit_eval_latents(self.model, self.params, self.datamanager)
-        m = eval_image_metrics(self.model, params, self.datamanager, image_idx)
-        outputs = m.pop("outputs")
-        record = {f"eval_{k}": v for k, v in m.items() if v is not None}
-        self.history.append({"step": self.step, **record})
-        if self.writer is not None and self.is_main:
-            self.writer.write_scalars(self.step, record)
-            cams = self.datamanager.eval_cameras
-            _, batch = self.datamanager.eval_image_bundle(image_idx)
-            _, panels = image_metrics_and_panels(self.model, params, outputs, batch, cams.height, cams.width,
-                                                 latent_slot=image_idx)
-            for name, img in panels.items():
-                self.writer.write_image(self.step, name, img)
+        self.model.set_mesh(None)
+        try:
+            params, _ = fit_eval_latents(self.model, self.params, self.datamanager)
+            m = eval_image_metrics(self.model, params, self.datamanager, image_idx)
+            outputs = m.pop("outputs")
+            record = {f"eval_{k}": v for k, v in m.items() if v is not None}
+            self.history.append({"step": self.step, **record})
+            if self.writer is not None and self.is_main:
+                self.writer.write_scalars(self.step, record)
+                cams = self.datamanager.eval_cameras
+                _, batch = self.datamanager.eval_image_bundle(image_idx)
+                _, panels = image_metrics_and_panels(self.model, params, outputs, batch, cams.height, cams.width,
+                                                     latent_slot=image_idx)
+                for name, img in panels.items():
+                    self.writer.write_image(self.step, name, img)
+        finally:
+            self.model.set_mesh(self.mesh)
 
     def save(self, path: Optional[str] = None):
         """Write the checkpoint (rank 0 alone on a mesh)."""

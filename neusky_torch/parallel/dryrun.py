@@ -5,80 +5,29 @@ against a one-process run of the same batch and draws.
 
     python -m neusky_torch.parallel.dryrun 4 --device cpu --backend gloo
 
-The configuration and batch are this module's own copies of JAX's
-``_tiny_configs`` and ``_tiny_batch``, the batch drawn from a seed.
+The configuration and batch are JAX's ``_tiny_configs`` and
+``_tiny_batch`` (:func:`neusky_torch.entry.tiny_configs`,
+:func:`neusky_torch.entry.tiny_batch`), the batch drawn from a seed.
 """
 
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import math
 import sys
 import torch
 
-from neusky_torch.configs.env_overrides import apply_env_knobs
-from neusky_torch.core.rays import RayBundle
 from neusky_torch.device import resolve_device
 from neusky_torch.engine.optimizers import GroupedAdam, OptimizerGroupConfig
-from neusky_torch.fields.ddf import DDFFieldConfig
-from neusky_torch.fields.density_field import DensityFieldConfig
-from neusky_torch.fields.reni import RENIFieldConfig
-from neusky_torch.fields.sdf_albedo import SDFAlbedoFieldConfig
-from neusky_torch.models.ddf_model import DDFModelConfig
-from neusky_torch.models.neusky import LossInclusions, NeuSkyModel, NeuSkyModelConfig
+from neusky_torch.entry import tiny_batch, tiny_configs
+from neusky_torch.models.neusky import NeuSkyModel
 from neusky_torch.models.pipeline import PipelineConfig
-from neusky_torch.ops.hashgrid import HashGridConfig
 from neusky_torch.parallel.launch import run_ranks
 from neusky_torch.parallel.mesh import check_backend, make_mesh, make_train_step, replicate, shard_batch
 from neusky_torch.sampling.ddf_sampler import DDFSamplerConfig
-from neusky_torch.sampling.proposal import ProposalSamplerConfig
 
 LOSS_RTOL = 1e-3  # JAX's bound
-
-
-def _tiny_configs(num_train: int = 4) -> NeuSkyModelConfig:
-    tiny_hash = HashGridConfig(num_levels=4, features_per_level=2, log2_hashmap_size=12, base_res=4, max_res=32)
-    return apply_env_knobs(NeuSkyModelConfig(
-        sdf_field=SDFAlbedoFieldConfig(num_layers=2, hidden_dim=64, geo_feat_dim=32, num_layers_color=2,
-                                       hidden_dim_color=64, hash=tiny_hash),
-        proposal=ProposalSamplerConfig(num_proposal_samples=(32, 16), num_final_samples=12),
-        proposal_fields=(DensityFieldConfig(hidden_dim=16, num_layers=2, hash=tiny_hash),
-                         DensityFieldConfig(hidden_dim=16, num_layers=2, hash=tiny_hash)),
-        illumination=RENIFieldConfig(latent_dim=8, hidden_features=32, num_attention_heads=4,
-                                     num_attention_layers=2, fixed_decoder=False),
-        ddf=DDFModelConfig(field=DDFFieldConfig(
-            conditioning="FiLM", position_encoding_type="nerf", direction_encoding_type="nerf", hidden_layers=2,
-            hidden_features=32, mapping_layers=2, mapping_features=32)),
-        num_illumination_directions=12,
-        use_visibility=True,
-        fit_visibility_field=True,
-        num_train_data=num_train,
-        num_eval_data=2,
-        losses=LossInclusions(hashgrid_density_grid_resolution=4),
-        visibility_query_chunk=1024,
-    ))
-
-
-def _tiny_batch(seed: int, device, n_rays: int = 64, num_images: int = 4) -> dict:
-    g = torch.Generator().manual_seed(seed)
-    d = torch.randn((n_rays, 3), generator=g)
-    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
-    o = torch.tensor([[0.0, -0.9, 0.2]]).repeat(n_rays, 1)
-    sky_d = torch.randn((16, 3), generator=g)
-    sky_d = sky_d / torch.linalg.norm(sky_d, dim=-1, keepdim=True)
-    sky_d[:, 2] = sky_d[:, 2].abs()
-    batch = {
-        "ray_bundle": RayBundle.create(origins=o, directions=d),
-        "image": torch.rand((n_rays, 3), generator=g),
-        "mask": torch.cat([torch.ones((n_rays, 2)), torch.zeros((n_rays, 2))], dim=-1),
-        "image_indices": torch.arange(num_images, dtype=torch.int32),
-        "ray_image_idx": torch.repeat_interleave(torch.arange(num_images, dtype=torch.int32), n_rays // num_images),
-        "sky_ray_bundle": RayBundle.create(origins=torch.tensor([[0.0, -0.9, 0.2]]).repeat(16, 1), directions=sky_d),
-    }
-    return {k: (RayBundle(**{f.name: getattr(v, f.name).to(device) for f in dataclasses.fields(v)})
-                if isinstance(v, RayBundle) else v.to(device)) for k, v in batch.items()}
 
 
 def _pipeline() -> PipelineConfig:
@@ -96,14 +45,14 @@ def _mesh_dirs(n_devices: int) -> int:
 def _one_step(device, mesh, n_devices: int) -> float:
     """The joint step of the tiny model on the batch of 16 · ``n_devices``
     rays (this rank's shard with ``mesh``) → the (global) total loss."""
-    model = NeuSkyModel(_tiny_configs(), device=device)
+    model = NeuSkyModel(tiny_configs(), device=device)
     model.set_mesh(mesh)
     gen = torch.Generator(device=model.device).manual_seed(0)
     params = replicate(model.init(gen), mesh)
     groups = {name: OptimizerGroupConfig(lr=1e-3, schedule="constant", max_steps=10)
               for name in ("proposal_networks", "fields", "illumination_field", "visibility_sigmoid", "ddf_field")}
     optimizer = GroupedAdam(params, groups)
-    batch = shard_batch(_tiny_batch(1, model.device, n_rays=16 * n_devices), mesh)
+    batch = shard_batch(tiny_batch(1, model.device, n_rays=16 * n_devices), mesh)
     step_fn = make_train_step(model, _pipeline(), optimizer, mesh=mesh)
     gen.manual_seed(3)
     return float(step_fn(params, batch, 0.0, generator=gen)["total_loss"])

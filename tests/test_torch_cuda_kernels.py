@@ -253,3 +253,27 @@ def test_bf16_matmul_on_card_matches_the_cpu_product(cuda_device):
     for x, y in zip(got[1:], want[1:]):
         assert torch.equal(x, x.bfloat16().float())
         assert bool(((x - y).abs() <= 2.0**-7 * y.abs() + 1e-5 * y.abs().max()).all())
+
+
+# ---------------------------------------------------------------------------
+# the port's bench on the card (K1 on the main path)
+
+
+@pytest.mark.cuda
+def test_bench_step_launches_k1_seven_times_a_step(cuda_device, monkeypatch):
+    """``neusky_torch.bench.build`` on the card (bench's configuration (a),
+    the fused step): 2 steps, each launching K1 once per differentiated
+    hash-grid encode, 7 times, with a finite loss; 2,304 rays a step."""
+    from neusky_torch import bench
+
+    for name in ("NEUSKY_BENCH_SPLIT", "NEUSKY_BENCH_NATIVE"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv("NEUSKY_BF16_MAPPING", "1")
+    b = bench.build(cuda_device)
+    assert b.rays_per_step == 2304
+    for s in range(2):
+        before = k1.launches[k1.KERNEL_NAME]
+        aux = b.step(b.params, b.datamanager.next_train(s), float(s), generator=b.generator)
+        torch.cuda.synchronize()
+        assert k1.launches[k1.KERNEL_NAME] - before == 7
+        assert torch.isfinite(aux["total_loss"])

@@ -54,7 +54,8 @@ def _entry_points():
     from neusky_torch.models.neusky import NeuSkyModel
     from neusky_torch.models.pipeline import PipelineConfig
     from neusky_torch.parallel.dryrun import dryrun_multichip
-    from neusky_torch import viewer
+    from neusky_torch import bench, viewer
+    from neusky_torch.entry import entry
     from neusky_torch.tools import (
         ab_ddf_encoding, diagnose_ckpt, eval_from_ckpt, fit_prior_init_latent, prior_fit_sanity, probe_sky_fit,
         render_animation, render_from_ckpt, train_reni_prior, train_sanity,
@@ -95,13 +96,17 @@ def _entry_points():
             mesh=object(),
         ),
         "dryrun_multichip": lambda: dryrun_multichip(2),
+        "bench": lambda: bench.main([]),
+        "bench_build": lambda: bench.build(),
+        "entry": lambda: entry(),
     }
 
 
 @pytest.mark.parametrize("name", ["model", "datamanager", "trainer", "cli", "reni_trainer", "reni_prior_script",
                                   "train_sanity", "eval_from_ckpt", "render_from_ckpt", "render_animation", "viewer",
                                   "fit_prior_init_latent", "split_step_trainer", "probe_sky_fit", "diagnose_ckpt",
-                                  "prior_fit_sanity", "ab_ddf_encoding", "mesh_trainer", "dryrun_multichip"])
+                                  "prior_fit_sanity", "ab_ddf_encoding", "mesh_trainer", "dryrun_multichip",
+                                  "bench", "bench_build", "entry"])
 def test_entry_point_without_cpu_raises_when_cuda_absent(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -187,6 +192,11 @@ def test_guards_cover_the_variants_and_the_diagnostic_tools():
         "fields/illumination_alternatives", "ops/icosphere_encoding", "nets/transformer", "tools/analyze_run",
         "tools/prepare_nerfosr", "tools/probe_sky_fit", "tools/diagnose_ckpt", "tools/prior_fit_sanity",
         "tools/ab_ddf_encoding")} <= guarded
+
+
+def test_guards_cover_the_bench_and_entry():
+    guarded = {str(p.relative_to(REPO)) for p in _port_files()}
+    assert {"neusky_torch/bench.py", "neusky_torch/entry.py"} <= guarded
 
 
 def test_module_level_import_scan_sees_top_level_and_skips_functions():
@@ -377,14 +387,19 @@ def test_guards_cover_the_knobs_and_the_native_sampler():
 def test_native_sampler_builds_only_under_the_port_build_directory():
     """The library goes to ``neusky_torch/_build/`` (listed in
     ``.gitignore``), never into the JAX package's ``native/``; its source
-    is the port's own copy of ``native/batch_sampler.cpp``, unchanged."""
+    is the port's own copy of ``native/batch_sampler.cpp``: the generator,
+    the pixel tables and the batch draw unchanged (its prefetch thread also
+    draws each batch's sky rays)."""
     from neusky_torch.data import native_sampler
 
     build = REPO / "neusky_torch" / "_build"
     assert native_sampler.BUILD_DIR == build and native_sampler.library_path().parent == build
     assert "neusky_torch/_build/" in (REPO / ".gitignore").read_text().split()
     assert native_sampler.SOURCE == REPO / "neusky_torch" / "csrc" / "batch_sampler.cpp"
-    assert native_sampler.SOURCE.read_bytes() == (REPO / "native" / "batch_sampler.cpp").read_bytes()
+    port, jax_src = native_sampler.SOURCE.read_text(), (REPO / "native" / "batch_sampler.cpp").read_text()
+    for start, stop in (("struct Rng {", "struct Batch {"), ("  void build_tables() {", "  void prefetch_loop() {")):
+        kept = jax_src[jax_src.index(start):jax_src.index(stop)]
+        assert kept in port, start
     assert "native" not in [p.name for p in native_sampler.library_path().parents][:3]
 
 

@@ -4,12 +4,14 @@ from the same seed: synchronous batches, sky rays, the prefetch queue and a
 reseeded ``DataManager``; the ``DataManager`` hooks (``next_train`` with
 ``use_native_sampler=True``); and the refusal to run without a build.
 
-Once the prefetch thread runs, the C++ sky draws share its generator
-without a lock (in both packages), so a live ``next_train``'s draws depend
-on the threads' interleaving: its hooks are compared on the same native
-draws, and its live batches are checked for what they must hold."""
+The port's prefetch thread draws each batch's sky rays after its pixels
+(JAX's draws them on the caller's thread, racing the prefetch thread), so a
+live ``next_train`` gives the synchronous stream (batch 0, sky 0, batch 1,
+sky 1, ...) draw for draw at any queue depth and any pace of its caller."""
 
 import dataclasses
+import itertools
+import time
 
 import numpy as np
 import pytest
@@ -108,13 +110,22 @@ def test_datamanager_config_mirrors_jax():
 
 
 def test_reseed_rebuilds_the_native_stream_as_jax(data):
+    """After ``reseed`` both packages prefetch from the same folded seed:
+    the first batch is JAX's prefetched one, and the port's stream goes on
+    as JAX's synchronous sampler from that seed, batch and sky in turn."""
     t, j = _dms(seed=2)
     first = t._native
     t.reseed(40)
     j.reseed(40)
     assert t._native is not first and first._handle is None  # the old sampler was closed
-    for _ in range(3):
-        _equal(t._native.next_batch(), j._native.next_batch())
+    folded = int(np.random.SeedSequence([2, 40]).generate_state(1)[0])
+    sync = JSampler(np.asarray(t.train_images), np.asarray(t.train_masks), seed=folded)
+    got = t._native.next_batch()
+    _equal(got[:4], j._native.next_batch())
+    for i in range(3):
+        if i:
+            got = t._native.next_batch()
+        _equal(got, sync.sample_batch(3, 8) + sync.sample_sky(SKY))
     assert t.train_sampler.rng.bit_generator.state == j.train_sampler.rng.bit_generator.state
 
 
@@ -126,10 +137,11 @@ def test_next_train_native_hooks_equal_jax(monkeypatch):
     canned = JSampler(*(np.asarray(x) for x in (t.train_images, t.train_masks)), seed=9)
     draws = [canned.sample_batch(3, 8) for _ in range(2)]
     skies = [canned.sample_sky(SKY) for _ in range(2)]
-    for dm in (t, j):
-        it_b, it_s = iter(draws), iter(skies)
-        monkeypatch.setattr(dm._native, "next_batch", lambda it=it_b: next(it))
-        monkeypatch.setattr(dm._native, "sample_sky", lambda n, it=it_s: next(it))
+    it_t = iter([d + s for d, s in zip(draws, skies)])  # the port's batches carry their sky
+    monkeypatch.setattr(t._native, "next_batch", lambda: next(it_t))
+    it_b, it_s = iter(draws), iter(skies)
+    monkeypatch.setattr(j._native, "next_batch", lambda: next(it_b))
+    monkeypatch.setattr(j._native, "sample_sky", lambda n: next(it_s))
     numpy_keys = sorted(t_dm.DataManager(t_dm.DataManagerConfig(pixel_sampler=PixelSamplerConfig(3, 8)),
                                          _scene()["cameras"], t.train_images, t.train_masks, device="cpu")
                         .next_train(0))
@@ -156,6 +168,32 @@ def test_next_train_native_live_batches_are_valid():
         sky = ((b["sky_pixel_coords"][:, 0] - 0.5) * 16 + (b["sky_pixel_coords"][:, 1] - 0.5)).long().numpy()
         assert (msks[b["sky_cam_idx"].numpy(), sky, 3] > 0.5).all()
         assert b["pixel_coords"].shape == (24, 2) and b["sky_cam_idx"].shape == (SKY,)
+
+
+@pytest.mark.parametrize("pause_s", [0.0, 2e-4], ids=["no_pause", "short_sleep"])
+@pytest.mark.parametrize("depth", [1, 2, 4])
+def test_prefetched_stream_equals_the_synchronous_stream(depth, pause_s):
+    """200 live ``next_train`` calls (the caller pausing after every third
+    call when ``pause_s``, so the queue is found both full and empty) give
+    the stream of a sampler of the same seed drawn synchronously: batch 0,
+    sky 0, batch 1, sky 1, ..."""
+    scene = _scene()
+    dm = t_dm.DataManager(t_dm.DataManagerConfig(pixel_sampler=PixelSamplerConfig(3, 8), num_sky_rays=SKY, seed=11,
+                                                 use_native_sampler=True, native_queue_depth=depth),
+                          scene["cameras"], scene["images"], scene["masks"], device="cpu")
+    sync = TSampler(scene["images"], scene["masks"], seed=11)
+    coords = dm._native_pixel_coords
+    pauses = itertools.cycle([0.0, 0.0, pause_s])
+    for step in range(200):
+        got = dm.next_train(step)
+        rows, pixels, rgb, mask = sync.sample_batch(3, 8)
+        sky_rows, sky_pixels = sync.sample_sky(SKY)
+        for key, want in (("image_indices", rows), ("pixel_coords", coords(pixels)), ("image", rgb),
+                          ("mask", mask), ("sky_cam_idx", sky_rows), ("sky_pixel_coords", coords(sky_pixels))):
+            np.testing.assert_array_equal(got[key].numpy(), want, err_msg=f"call {step}: {key}")
+        time.sleep(next(pauses))
+    dm._native.close()
+    sync.close()
 
 
 @pytest.fixture

@@ -186,3 +186,57 @@ def max_rel_err(a, b) -> float:
     a = np.asarray(a, np.float64)
     b = np.asarray(b, np.float64)
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def _eval_datamanager(scene, eval_scene):
+    from neusky_torch.data.datamanager import DataManager, DataManagerConfig
+    from neusky_torch.data.pixel_sampler import PixelSamplerConfig
+
+    return DataManager(DataManagerConfig(pixel_sampler=PixelSamplerConfig(2, 16), num_sky_rays=8),
+                       scene["cameras"], scene["images"], scene["masks"], eval_cameras=eval_scene["cameras"],
+                       eval_images=eval_scene["images"], eval_masks=eval_scene["masks"], device="cpu")
+
+
+def eval_trainer(cfg, pipe, scene, eval_scene, mesh=None) -> Trainer:
+    """The trainer of the eval-pass test: one training step, then the eval
+    pass (the latent fit of both eval slots, the render of eval image 0 and
+    its scores), on a mesh or alone."""
+    return Trainer(TrainerConfig(max_num_iterations=100, steps_per_log=1, steps_per_save=1000,
+                                 steps_per_eval_image=1, seed=0),
+                   NeuSkyModel(cfg, device="cpu"), pipe, _eval_datamanager(scene, eval_scene), device="cpu",
+                   mesh=mesh)
+
+
+def capture_eval_fit(trainer_module, into: list):
+    """Wrap ``trainer_module.fit_eval_latents`` so that each call appends
+    (the params it was given, the params it returned) to ``into``."""
+    fit = trainer_module.fit_eval_latents
+
+    def capturing(model, params, dm, *a, **k):
+        out = fit(model, params, dm, *a, **k)
+        into.append(({k2: t.detach().numpy().copy() for k2, t in tree_items(params)},
+                     {k2: t.detach().numpy().copy() for k2, t in tree_items(out[0]) if k2.startswith("eval_latents/")}))
+        return out
+
+    trainer_module.fit_eval_latents = capturing
+
+
+def eval_rank(rank, world_size, init_method, dirs, cfg, pipe, scene, eval_scene):
+    """``Trainer(mesh=)`` on a ``data`` × ``dirs`` mesh: one training step,
+    then the eval pass of the cadence → the eval record, the params the
+    fit was given (rank 0's alone) and the eval group it fitted."""
+    from neusky_torch.engine import trainer as trainer_module
+
+    torch.set_num_threads(1)
+    mesh = make_mesh(world_size, dirs, backend="gloo", rank=rank, init_method=init_method)
+    fits: list = []
+    capture_eval_fit(trainer_module, fits)
+    trainer = eval_trainer(cfg, pipe, scene, eval_scene, mesh)
+    # the occlusion threshold at the loss's target, where a trained run's
+    # lies: at its initial 2.0 every visibility is 1 and the ``dirs`` split
+    # could not show in the record
+    with torch.no_grad():
+        trainer.params["visibility_sigmoid"]["visibility_threshold"].fill_(cfg.losses.vis_target_min_bias)
+    history = trainer.run(1)
+    (params_in, fitted), = fits
+    return {"history": history, "eval_latents": fitted, "params_in": params_in if rank == 0 else None}
