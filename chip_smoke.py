@@ -2,7 +2,14 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero; no phase's failure is passed over):
+Phases (any failure exits non-zero; no phase's failure is passed over).
+Every single-process training step and eval-latent fit on the card runs
+captured as a CUDA graph (``neusky_torch/parallel/graphs.py``:
+the first call of a step eager, the second captured, then replays), as
+the entry points run it; K1's launches are counted through the replays,
+and where a phase keeps K1's inputs it takes them from one eager step on
+the same params.  Phase 13, the mesh, runs eagerly (its collectives are
+not captured):
 
 1. the card (``torch.cuda.get_device_name``, ``nvidia-smi`` name and power
    limit); build every kernel from ``neusky_torch/csrc`` with ``nvcc``
@@ -146,18 +153,33 @@ Phases (any failure exits non-zero; no phase's failure is passed over):
 15. ``neusky_torch.entry.entry()``: its eval-mode forward of the tiny model
    on the card against the CPU from the same params and rays (rgb, depth,
    normal, accumulation within 1e-4 of each output's scale), K1 0;
-16. one JSON line listing every kernel (K1 per step of phase 12's split
+16. the captured step against the eager step, on bench's (a) fused and
+   split, each built by ``bench.build`` from seed-0 params and seed-1
+   draws: 3 warm-up + 8 steps each, the losses of every step within 1e-4
+   relative, K1 7 a step counted through the replays, then one more step
+   of both from the captured run's params and Adam state, its updates at
+   phase 3's bounds but where a gradient within its bound of zero flips
+   Adam's update (:func:`same_state_step`); steady ms a step, device busy
+   share and ops and the host's launch calls (a profiled step on a pass
+   of its own), capture seconds and peak memory of each; then the 250-step
+   eval-latent fit captured against ``host_loop=True``: the fitted eval
+   latents within 1e-4 of their scale, ms a fit step;
+17. one JSON line listing every kernel (K1 per step of phase 12's split
    step, on its own inputs, with their shapes), the card line, and the
    final ``{"ok": true, "device": ...}`` line.
 
 ``split_ab()`` is a separate command: the split and the fused step in
 turns, more steps each (see its docstring); ``mesh_path()`` runs phase 13
-alone.
+alone, ``graph_path()`` phase 16; ``graph_spread()`` measures how far two
+runs of a step part (the ground of phase 16's bound on the params) and
+``bench_ab()`` runs the port's bench at a parent tree and at this one in
+turns.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import io
 import json
@@ -193,7 +215,7 @@ from neusky_torch.engine.eval_loop import (
 from neusky_torch.engine.trainer import Trainer, TrainerConfig
 from neusky_torch.models.neusky import NeuSkyModel, visibility_query_directions
 from neusky_torch.models.losses import ddf_sky_ray_loss
-from neusky_torch.models.pipeline import batch_sky_bundle, draw_ddf_fit, train_loss_fn
+from neusky_torch.models.pipeline import batch_sky_bundle, draw_ddf_fit, draw_step, train_loss_fn
 from neusky_torch.ops import hashgrid, hashgrid_cuda as k1
 from neusky_torch.ops.hashgrid import HashGridEncoding
 from neusky_torch.parallel import mesh as mesh_mod
@@ -206,7 +228,7 @@ from neusky_torch.utils.profiling import count_visibility_queries
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 STEPS = 4  # joint path
-SCENE_STEPS = 3
+SCENE_STEPS = 4
 # ~10 ms at the H100's clock: longer than the host takes to queue one
 # timing loop's calls
 HOLD_CYCLES = 20_000_000
@@ -650,9 +672,10 @@ def run_path(label: str, cfg, pcfg, steps: int, card: str, require_groups=()):
     launches = k1.launches[k1.KERNEL_NAME]
     check(per_step == [expected] * steps, f"{label}: K1 launches per step {per_step}, expected {expected}")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    steady = float(np.mean(times[1:]))
+    # step 0 runs eagerly and step 1 captures the step: the replays are steady
+    steady = float(np.mean(times[2:]))
     log(f"{label} peak device memory: {peak:.2f} GiB")
-    log(f"{label} steady step (mean of steps 1..{steps - 1}): {steady * 1e3:.1f} ms, "
+    log(f"{label} steady step (mean of steps 2..{steps - 1}, replays): {steady * 1e3:.1f} ms, "
         f"{n_rays / steady:.1f} scene rays/s, {n_counted / steady:.1f} counted rays/s ({card})")
 
     end = dict(tree_items(trainer.params))
@@ -664,9 +687,26 @@ def run_path(label: str, cfg, pcfg, steps: int, card: str, require_groups=()):
     for k, v in end.items():
         check(not k.startswith("illumination_decoder/") or torch.equal(start[k], v), f"frozen {k} changed")
     log(f"{label} trainable groups changed: " + ", ".join(changed) + "; the decoder stayed frozen")
-    captured = capture_k1_inputs(lambda: trainer.run(1))
+    log(f"{label} step captured as a CUDA graph in {trainer.train_step.captured.capture_s:.3f} s; "
+        f"{trainer.train_step.captured.replays} replays")
+    with eager_steps(trainer):
+        captured = capture_k1_inputs(lambda: trainer.run(1))
     profile_call(lambda: trainer.run(1), steady, card, f"{label} step")
     return launches, captured
+
+
+@contextlib.contextmanager
+def eager_steps(trainer):
+    """``trainer``'s step run eagerly inside the block, on the same params
+    and Adam state as its captured step (a replay calls no Python, so K1's
+    inputs are kept from an eager step)."""
+    graphed = trainer.train_step
+    make = mesh_mod.make_train_step_split if trainer.config.use_split_step else mesh_mod.make_train_step
+    trainer.train_step = make(trainer.model, trainer.pipeline_config, trainer.optimizer, graphed=False)
+    try:
+        yield trainer
+    finally:
+        trainer.train_step = graphed
 
 
 # device-op name fragments → kind, first match wins
@@ -682,10 +722,17 @@ KERNEL_KINDS = (
 )
 
 
+# the CUDA runtime and driver calls by which the host issues device work
+# (kernel launches, copies and fills, graph launches)
+HOST_LAUNCH_CALLS = ("LaunchKernel", "Memcpy", "Memset", "GraphLaunch")
+
+
 def profile_call(fn, wall_s: float, card: str, label: str, top: int = 15):
     """``fn()`` once more under ``torch.profiler``: device time by kernel
     name, its sum against ``wall_s`` (the unprofiled wall time of the same
-    work), and K1's share."""
+    work), K1's share, and the calls by which the host issued the work
+    (:data:`HOST_LAUNCH_CALLS`: one per kernel eagerly, one graph launch
+    and the input copies for a captured step)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -693,6 +740,8 @@ def profile_call(fn, wall_s: float, card: str, label: str, top: int = 15):
         fn()
         torch.cuda.synchronize()
     by_name, longest = {}, {}
+    host_calls = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU
+                     and e.name.startswith("cu") and any(w in e.name for w in HOST_LAUNCH_CALLS))
     for e in prof.events():
         # device-side user annotations (the optimizer's range) are spans
         # over kernels, not work of their own
@@ -713,7 +762,8 @@ def profile_call(fn, wall_s: float, card: str, label: str, top: int = 15):
     cat_max = max((longest[k] for k in cat), default=0.0)
     log(f"{label} profile ({card}): device busy {device_ms:.3f} ms of the {wall_s * 1e3:.3f} ms unprofiled wall time "
         f"({device_ms / (wall_s * 1e3):.3f}); {n_kernels} device ops under {len(by_name)} names; "
-        f"K1 {k1_ms:.3f} ms; CatArrayBatchedCopy {cat_us / 1e3:.3f} ms ({cat_n}x, longest {cat_max:.1f} us)")
+        f"K1 {k1_ms:.3f} ms; CatArrayBatchedCopy {cat_us / 1e3:.3f} ms ({cat_n}x, longest {cat_max:.1f} us); "
+        f"{host_calls} launch, copy and graph calls from the host")
     by_kind = {}
     for name, (n, us) in by_name.items():
         kind = next((k for k, keys in KERNEL_KINDS if any(s in name for s in keys)), "other")
@@ -724,7 +774,7 @@ def profile_call(fn, wall_s: float, card: str, label: str, top: int = 15):
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
         log(f"  {us / 1e3:9.3f} ms  {n:5d}x  {name[:110]}")
     return {"device_ms": device_ms, "busy_share": device_ms / (wall_s * 1e3), "ops": n_kernels,
-            "by_kind_ms": {k: us / 1e3 for k, (_, us) in by_kind.items()}}
+            "host_calls": host_calls, "by_kind_ms": {k: us / 1e3 for k, (_, us) in by_kind.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -1301,9 +1351,9 @@ def run_bench_config(label: str, knobs, sdf_query_chunk: int, card: str, split: 
         expected = expected_launches_per_step(cfg, b.pipeline, n_rays)
         history = []
 
-        def train_step():
+        def train_step(step_fn=b.step):
             s = len(history)
-            aux = b.step(b.params, b.datamanager.next_train(s), float(s), generator=b.generator)
+            aux = step_fn(b.params, b.datamanager.next_train(s), float(s), generator=b.generator)
             history.append({"step": s + 1, "total_loss": float(aux["total_loss"]),
                             **{k: float(v) for k, v in aux["metrics"].items()},
                             **{k: float(v) for k, v in aux["loss_dict"].items()}})
@@ -1332,13 +1382,17 @@ def run_bench_config(label: str, knobs, sdf_query_chunk: int, card: str, split: 
         log(f"{label} steady step (mean of {steps} after {BENCH_WARMUP} warm-up): {steady * 1e3:.3f} ms, "
             f"{n_rays / steady:.1f} scene rays/s, {n_counted / steady:.1f} counted rays/s; peak device memory "
             f"{peak:.3f} GiB ({card})")
-        captured = capture_k1_inputs(train_step)
+        capture_s = b.step.captured.capture_s
+        log(f"{label} step captured as a CUDA graph in {capture_s:.3f} s ({card})")
+        eager = (mesh_mod.make_train_step_split if split else mesh_mod.make_train_step)(
+            b.model, b.pipeline, b.optimizer, graphed=False)
+        captured = capture_k1_inputs(lambda: train_step(eager))
         prof = profile_call(train_step, steady, card, f"{label} step")
         sites = check_k1_main_path_inputs(cfg, b.pipeline, n_rays, captured)
         if save_to is not None:
             save_checkpoint(Path(save_to), len(history), b.params, b.optimizer.state_dict())
         del captured, b
-    return {"label": label, "steady_ms": steady * 1e3, "scene_rays_per_s": n_rays / steady,
+    return {"label": label, "steady_ms": steady * 1e3, "capture_s": capture_s, "scene_rays_per_s": n_rays / steady,
             "counted_rays_per_s": n_counted / steady, "peak_gib": peak, "k1_per_step": expected,
             "k1_launches": launches, "busy_share": prof and prof["busy_share"],
             "device_ms": prof and prof["device_ms"], "matmul_ms": prof and prof["by_kind_ms"].get("matmul", 0.0),
@@ -2097,7 +2151,7 @@ def mesh_check_step(cfg, pcfg, dev, mesh, batch, draws):
     launches, DDF visibility queries)."""
     model, params = mesh_init(mesh_check_config(cfg), dev, mesh)
     opt = GroupedAdam(params, default_neusky_optimizer_groups(100001))
-    step_fn = mesh_mod.make_train_step(model, pcfg, opt, mesh)
+    step_fn = mesh_mod.make_train_step(model, pcfg, opt, mesh, graphed=False)
     local = mesh_mod.shard_batch(_batch_to(batch, dev), mesh)
     before = k1_launches()
     with count_visibility_queries(model) as queries:
@@ -2355,6 +2409,281 @@ def check_entry_cuda_vs_cpu(card: str) -> dict:
     return errs
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the captured step against the eager step
+
+
+GRAPH_WARMUP, GRAPH_STEPS = 3, 8
+GRAPH_LOSS_RTOL = 1e-4  # K1's and the gathers' atomics sum in another order each run
+GRAPH_FIT_REL = 1e-4  # the fitted eval latents and scales, of their scale
+# Adam (eps 1e-15) moves an entry by about lr whatever its gradient's size,
+# and a sample's gradient lands on hash rows by its position and its
+# stochastic corner: two runs of the same steps, eager against eager as
+# captured against eager, part on tens of thousands of the SDF table's
+# 16.8M entries within 11 steps, K1's atomic order the seed
+# (:func:`graph_spread`).  So the params are held after one step that both
+# take from the same state, where only that step's atomics differ.
+FLIP_LR_FACTOR = 7.0  # a step moves an entry by at most ~3.3 lr: twice that
+
+
+def _clone_tree(tree):
+    """A copy of an optimizer state dict (dicts of tensors and values)."""
+    return tree_map(lambda x: x.clone() if torch.is_tensor(x) else copy.deepcopy(x), tree)
+
+
+def same_state_step(eager, graphed, split: bool, s: int, grad_rel=None) -> dict:
+    """One more step of ``graphed`` (its captured step: a replay) and of
+    ``eager`` (its eager step) from the same state: the captured run's
+    params and Adam state, copied into the eager run's, one batch, one set
+    of draws and the step count ``s + 1`` as a device scalar.  Both are
+    ``bench.Bench``-like (``model``, ``pipeline``, ``datamanager``,
+    ``params``, ``optimizer``, ``step``).  The params after it are held as
+    phase 3 holds gradients: each trained array's update within 2e-3 (the
+    DDF's 5e-3, or ``grad_rel`` by top-level key) of its largest entry,
+    but where either run's gradient is within that bound of zero, where
+    Adam may take the other sign (at most FLIP_LR_FACTOR × the group's lr
+    apart); frozen leaves bit for bit → {"loss_rel", "ok", "worst",
+    "flips", "bad"}."""
+    grad_rel = grad_rel or {"ddf_field": 5e-3}
+    batch = graphed.datamanager.next_train(s)
+    draws = draw_step(graphed.model, graphed.pipeline, batch, torch.Generator("cuda").manual_seed(2), split)
+    step = torch.full((), float(s + 1), device="cuda")
+    count = graphed.optimizer.count
+    lr = {id(p): float(schedule(count)) for group, schedule in
+          zip(graphed.optimizer.optimizer.param_groups, graphed.optimizer.schedules) for p in group["params"]}
+    start = {k: v.detach().clone() for k, v in tree_items(graphed.params)}
+    state = _clone_tree(graphed.optimizer.state_dict())
+    total_g = float(graphed.step(graphed.params, batch, step, draws)["total_loss"])
+    with torch.no_grad():
+        for k, v in tree_items(eager.params):
+            v.copy_(start[k])
+    eager.optimizer.load_state_dict(state)
+    total_e = float(eager.step(eager.params, batch, step, draws)["total_loss"])
+    got, want = dict(tree_items(graphed.params)), dict(tree_items(eager.params))
+    worst, flips, bad = 0.0, 0, []
+    for k, w in want.items():
+        if id(got[k]) not in lr:
+            if not torch.equal(got[k], w):
+                bad.append((k, "frozen leaf moved"))
+            continue
+        rel = grad_rel.get(k.split("/")[0], 2e-3)
+        du_g, du_e = got[k].detach() - start[k], w.detach() - start[k]
+        diff = (du_g - du_e).abs()
+        near_zero = torch.zeros_like(diff, dtype=torch.bool)
+        for g in (got[k].grad, w.grad):
+            if g is not None:
+                near_zero |= g.abs() <= rel * g.abs().max()
+        beyond = diff > rel * du_e.abs().max()
+        worst = max(worst, float(diff[~near_zero].max()) / max(float(du_e.abs().max()), 1e-30)
+                    if bool((~near_zero).any()) else 0.0)
+        flips += int((beyond & near_zero).sum())
+        if not bool(torch.isfinite(du_g).all()) or bool((beyond & ~near_zero).any()) or (
+                bool(near_zero.any()) and float(diff[near_zero].max()) > FLIP_LR_FACTOR * lr[id(got[k])]):
+            bad.append((k, float(diff.max())))
+    return {"loss_rel": abs(total_g - total_e) / abs(total_e), "ok": not bad, "worst": worst, "flips": flips,
+            "bad": bad}
+
+
+def graphed_run(graphed: bool, split: bool) -> dict:
+    """Bench's (a) from ``bench.build`` (seed-0 params, seed-1 draws, the C++
+    sampler's stream) with the fused or split step, eager or captured:
+    GRAPH_WARMUP steps, then GRAPH_STEPS timed as one loop ended by a
+    synchronise; the losses of every step read after it.  Both take the
+    step count as a device scalar, as the captured step reads it: a float
+    step anneals the proposal weights by the host's float64 arithmetic,
+    which moves the samples by a few ulps and with them the hash rows that
+    take gradients (:func:`graph_spread`)."""
+    with knobs_set({**BENCH_KNOBS, **({"NEUSKY_BENCH_SPLIT": "1"} if split else {})}):
+        b = bench.build("cuda", graphed=graphed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1.launches[k1.KERNEL_NAME] = 0
+    auxes = []
+    for s in range(GRAPH_WARMUP + GRAPH_STEPS):
+        if s == GRAPH_WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        step = torch.full((), float(s + 1), device="cuda")
+        auxes.append(b.step(b.params, b.datamanager.next_train(s), step, generator=b.generator))
+    torch.cuda.synchronize()
+    steady = (time.perf_counter() - t0) / GRAPH_STEPS
+    return {"bench": b, "steady_ms": steady * 1e3, "k1_launches": k1_launches(),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30,
+            "capture_s": b.step.captured.capture_s if graphed else None,
+            "losses": [{"total_loss": float(a["total_loss"]), **{k: float(v) for k, v in a["loss_dict"].items()}}
+                       for a in auxes]}
+
+
+def graphed_vs_eager_train(split: bool, card: str) -> dict:
+    """Phase 16, one training step kind: the eager and the captured step
+    from the same params, draws and batches: the losses of every step
+    within GRAPH_LOSS_RTOL, K1 7 a step in both (counted through replays),
+    then one more step of both from the captured run's state
+    (:func:`same_state_step`), then one profiled step of each on a pass of
+    its own."""
+    eager, graphed = graphed_run(False, split), graphed_run(True, split)
+    n = GRAPH_WARMUP + GRAPH_STEPS
+    label = "split" if split else "fused"
+    for r in (eager, graphed):
+        log(f"phase 16 {label} (a) {'graphed' if r is graphed else 'eager'}: steady {r['steady_ms']:.3f} ms a step "
+            f"(loop of {GRAPH_STEPS} after {GRAPH_WARMUP}), K1 {r['k1_launches']} launches in {n} steps, peak "
+            f"{r['peak_gib']:.3f} GiB allocated / {r['peak_reserved_gib']:.3f} GiB reserved, capture {r['capture_s']} s "
+            f"({card})")
+    worst_loss = max(abs(g[k] - e[k]) / max(abs(e[k]), 1e-12)
+                     for e, g in zip(eager["losses"], graphed["losses"]) for k in e)
+    check(worst_loss <= GRAPH_LOSS_RTOL and all(math.isfinite(v) for r in graphed["losses"] for v in r.values()),
+          f"{label}: graphed losses differ from eager by {worst_loss:.3g}")
+    check(eager["k1_launches"] == graphed["k1_launches"] == 7 * n,
+          f"{label}: K1 launches eager {eager['k1_launches']}, graphed {graphed['k1_launches']}, expected {7 * n}")
+    close = same_state_step(eager["bench"], graphed["bench"], split, n)
+    log(f"phase 16 {label} (a) graphed vs eager ({card}): worst loss rel diff over {n} steps {worst_loss:.3g} "
+        f"(bound {GRAPH_LOSS_RTOL}); step {n + 1} from one state: loss rel diff {close['loss_rel']:.3g}, params' "
+        f"updates worst {close['worst']:.3g} of scale outside {close['flips']} near-zero-gradient entries; K1 "
+        f"{eager['k1_launches']} / {graphed['k1_launches']} launches")
+    check(close["ok"] and close["loss_rel"] <= GRAPH_LOSS_RTOL,
+          f"{label}: the captured step from the eager step's state differs: {close}")
+    for r in (eager, graphed):
+        b, s = r["bench"], n + 1
+        prof = profile_call(lambda: b.step(b.params, b.datamanager.next_train(s), float(s + 1), generator=b.generator),
+                            r["steady_ms"] / 1e3, card, f"phase 16 {label} (a) {'graphed' if r is graphed else 'eager'} "
+                            "step", top=5)
+        r.update(busy_share=prof and prof["busy_share"], device_ms=prof and prof["device_ms"],
+                 host_calls=prof and prof["host_calls"], device_ops=prof and prof["ops"])
+        del r["bench"], b
+    keys = ("steady_ms", "busy_share", "device_ms", "device_ops", "host_calls", "capture_s", "peak_gib",
+            "peak_reserved_gib", "k1_launches")
+    return {"step": label, "worst_loss_rel": worst_loss, "same_state": {k: close[k] for k in ("loss_rel", "worst",
+                                                                                                "flips")},
+            **{f"{kind}_{k}": r[k] for kind, r in (("eager", eager), ("graphed", graphed)) for k in keys}}
+
+
+def graphed_vs_eager_fit(card: str) -> dict:
+    """Phase 16, the eval-latent fit: 250 steps of the default (captured)
+    fit against ``host_loop=True`` (eager, step by step) on bench (a)'s
+    model with seed-0 params and the eval ring of phase 6 (two
+    datamanagers of one seed: the same batches): the fitted eval latents
+    and scales within GRAPH_FIT_REL of their scale, K1 0."""
+    with knobs_set(BENCH_KNOBS):
+        cfg = bench.model_config()
+    model = NeuSkyModel(cfg, device="cuda")
+    params = load_illumination_prior(model.init(torch.Generator("cuda").manual_seed(0)), cfg)
+    out, fits = {}, {}
+    k1.launches[k1.KERNEL_NAME] = 0
+    for kind, host_loop in (("host_loop", True), ("graphed", False)):
+        dm = eval_datamanager("cuda")
+        (fit, losses), secs, peak = measured(lambda: fit_eval_latents(model, params, dm, steps=EVAL_FIT_STEPS,
+                                                                      host_loop=host_loop))
+        fits[kind] = {k: v.detach() for k, v in fit["eval_latents"].items()}
+        out[f"{kind}_ms_per_step"] = secs / EVAL_FIT_STEPS * 1e3
+        out[f"{kind}_peak_gib"] = peak
+        out[f"{kind}_loss_last"] = losses[-1]
+    errs = {k: float((fits["graphed"][k] - fits["host_loop"][k]).abs().max() / fits["host_loop"][k].abs().max())
+            for k in ("eval_latents", "eval_scale")}
+    out.update(latent_err=errs, k1_launches=k1_launches())
+    log(f"phase 16 eval fit, graphed vs host_loop over {EVAL_FIT_STEPS} steps ({card}): " + json.dumps(out))
+    check(max(errs.values()) <= GRAPH_FIT_REL, f"graphed fit differs from the host loop's: {errs}")
+    check(out["k1_launches"] == 0, f"K1 launched {out['k1_launches']} times in the fits")
+    return out
+
+
+def run_graph_path(card: str) -> list:
+    """Phase 16: the captured step against the eager step on bench's (a)
+    fused and split, and the captured eval fit against the host loop."""
+    t0 = time.perf_counter()
+    rows = [graphed_vs_eager_train(False, card), graphed_vs_eager_train(True, card), graphed_vs_eager_fit(card)]
+    log("phase 16 " + json.dumps(rows))
+    log(f"phase 16 took {time.perf_counter() - t0:.3f} s")
+    return rows
+
+
+def graph_spread() -> int:
+    """How far two runs of bench (a)'s fused step part in GRAPH_WARMUP +
+    GRAPH_STEPS steps from the same params, draws and batches: eager
+    against eager (K1's atomic order alone), eager given the step as a
+    device scalar against eager given a float, and captured against eager
+    with either (the ground of phase 16's same-state step).  Prints one
+    JSON line a pair (the losses' worst relative difference; per trained
+    array the entries beyond 2e-3 of its largest, their count and the
+    largest difference), then the card line:
+
+        python3 -c 'import chip_smoke, sys; sys.exit(chip_smoke.graph_spread())'
+    """
+    if not torch.cuda.is_available():
+        print("graph_spread: CUDA is not available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = bench.card_line()
+    build_all()
+    n = GRAPH_WARMUP + GRAPH_STEPS
+
+    def run(graphed: bool, tensor_step: bool):
+        with knobs_set(BENCH_KNOBS):
+            b = bench.build("cuda", graphed=graphed)
+        losses = []
+        for s in range(n):
+            step = torch.full((), float(s + 1), device="cuda") if tensor_step else float(s + 1)
+            losses.append(float(b.step(b.params, b.datamanager.next_train(s), step, generator=b.generator)
+                                ["total_loss"]))
+        return losses, {k: v.detach().clone() for k, v in tree_items(b.params)}, {
+            k for k, v in tree_items(b.params) if v.requires_grad}
+
+    runs = {"eager": run(False, False), "eager again": run(False, False), "eager, step on the card": run(False, True),
+            "captured": run(True, True)}
+    for a, ref in (("eager again", "eager"), ("eager, step on the card", "eager"), ("captured", "eager"),
+                   ("captured", "eager, step on the card")):
+        (la, pa, _), (lb, pb, trained) = runs[a], runs[ref]
+        apart = {}
+        for k, w in pb.items():
+            d = (pa[k] - w).abs()
+            beyond = int((d > 2e-3 * w.abs().max()).sum()) if k in trained else 0
+            if beyond:
+                apart[k] = [beyond, w.numel(), float(d.max())]
+        print(json.dumps({"run": a, "against": ref, "steps": n,
+                          "loss_rel": max(abs(x - y) / abs(y) for x, y in zip(la, lb)), "beyond_bound": apart}))
+    print(card)
+    return 0
+
+
+def bench_ab(parent: str = "_parent") -> int:
+    """The port's bench (``python -m neusky_torch.bench``, its default
+    loops) at the tree unpacked in ``parent`` and at this one, in turns:
+    parent, change, change, parent, parent, change, each a fresh process;
+    prints each run's JSON line after its name, then the card line.
+    Unpack the parent first, into a directory ``.gitignore`` lists:
+    ``mkdir _parent && git archive <commit> | tar -x -C _parent``.
+
+        python3 -c 'import chip_smoke, sys; sys.exit(chip_smoke.bench_ab())'
+    """
+    if not torch.cuda.is_available():
+        print("bench_ab: CUDA is not available", file=sys.stderr)
+        return 2
+    here = Path(__file__).resolve().parent
+    for who in ("parent", "change", "change", "parent", "parent", "change"):
+        proc = subprocess.run([sys.executable, "-m", "neusky_torch.bench"], capture_output=True, text=True,
+                              cwd=here / parent if who == "parent" else here, timeout=900)
+        check(proc.returncode == 0, f"bench at the {who} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+        print(who, proc.stdout.strip().splitlines()[-1], flush=True)
+    print(bench.card_line())
+    return 0
+
+
+def graph_path() -> int:
+    """Phase 16 alone (the kernels built first):
+
+        python3 -c 'import chip_smoke, sys; sys.exit(chip_smoke.graph_path())'
+    """
+    if not torch.cuda.is_available():
+        print("graph_path: CUDA is not available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = bench.card_line()
+    build_all()
+    run_graph_path(card)
+    print(card)
+    return 0
+
+
 def mesh_path() -> int:
     """Phase 13 alone (the kernels built first):
 
@@ -2409,6 +2738,7 @@ def main() -> int:
     run_mesh_path(card)
     run_bench_module(card)
     check_entry_cuda_vs_cpu(card)
+    run_graph_path(card)
     joint_k1 = {k: sum(r[k] for r in sites) for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
     log(f"phase 5's joint step K1 (unfused, float32 mapping): {main_launches} launches in {STEPS} steps, "
         + json.dumps(joint_k1) + " ms a step")

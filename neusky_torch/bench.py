@@ -8,12 +8,15 @@ neusky_model_config(8, 2))`` with ``NEUSKY_BF16_MAPPING=1`` unless the
 variable is set, bench's pipeline (8 × 128 vMF rays at κ = 20, 256 sky
 rays), the synthetic scene (8 cameras, 64×64) with 8 × 128 rays a step from
 the C++ sampler, seed-0 params with the converted prior and the five Adam
-groups for 100,001 steps, and the fused step.  It takes 3 warm-up steps on
-one batch, one discarded loop, then ``NEUSKY_BENCH_REPEATS`` loops of
-``NEUSKY_BENCH_STEPS`` steps on fresh batches, each loop ended by
+groups for 100,001 steps, and the fused step, captured as a CUDA graph
+(``parallel/graphs.py``).  It takes 3 warm-up steps on one batch (the
+first eager, the second captures the step, the third replays), one
+discarded loop, then ``NEUSKY_BENCH_REPEATS`` loops of
+``NEUSKY_BENCH_STEPS`` replayed steps on fresh batches, each loop ended by
 ``torch.cuda.synchronize()``, and prints one JSON line whose ``value`` is
 the median loop's rays/s, the rays counted as ``Trainer`` counts them
-(scene + DDF-fit + sky: 2,304 a step).
+(scene + DDF-fit + sky: 2,304 a step), with ``graphed`` and the capture's
+wall time ``capture_s``.
 
 Knobs (JAX's): ``NEUSKY_BENCH_NATIVE`` (default 1; 0, "" or false: the
 numpy sampler), ``NEUSKY_BENCH_SPLIT`` (set: the split step),
@@ -76,6 +79,7 @@ class Bench:
     generator=)`` → aux, the params updated in place) and all it runs on."""
 
     config: NeuSkyModelConfig
+    model: NeuSkyModel
     pipeline: PipelineConfig
     datamanager: DataManager
     params: dict
@@ -96,11 +100,12 @@ def datamanager(device) -> DataManager:
                        scene["cameras"], scene["images"], scene["masks"], device=device)
 
 
-def build(device="cuda", config: Optional[NeuSkyModelConfig] = None) -> Bench:
+def build(device="cuda", config: Optional[NeuSkyModelConfig] = None, graphed: Optional[bool] = None) -> Bench:
     """The bench's step and everything it runs on, as the module docstring
     says, on ``device`` (the card unless ``device="cpu"``), for ``config``
     (default :func:`model_config`).  The params are drawn from a generator
-    seeded 0; the steps draw from one seeded 1."""
+    seeded 0; the steps draw from one seeded 1.  ``graphed`` as
+    ``make_train_step``'s (default: captured on the card)."""
     cfg = config or model_config()
     model = NeuSkyModel(cfg, device=device)
     pipe = pipeline()
@@ -109,7 +114,7 @@ def build(device="cuda", config: Optional[NeuSkyModelConfig] = None) -> Bench:
     optimizer = GroupedAdam(params, default_neusky_optimizer_groups(100001))
     make = make_train_step_split if os.environ.get("NEUSKY_BENCH_SPLIT", "") else make_train_step
     rays = count_rays(model, pipe, dm.next_train(0))
-    return Bench(cfg, pipe, dm, params, optimizer, make(model, pipe, optimizer),
+    return Bench(cfg, model, pipe, dm, params, optimizer, make(model, pipe, optimizer, graphed=graphed),
                  torch.Generator(model.device).manual_seed(1), rays)
 
 
@@ -203,6 +208,9 @@ def main(argv=None) -> int:
     if trace_dir:
         out["traced"] = True
         out["warning"] = "PROFILER RUN — 3 steps under torch.profiler; value is NOT a throughput measurement"
+    captured = getattr(b.step, "captured", None)
+    out["graphed"] = captured is not None
+    out["capture_s"] = captured.capture_s if captured is not None else None
     out["rays_per_step"] = b.rays_per_step
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     print(json.dumps(out), flush=True)

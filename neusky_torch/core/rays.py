@@ -93,13 +93,31 @@ class RaySamples:
         return self.origins + self.directions * self.starts
 
 
+class _CumprodNonzero(torch.autograd.Function):
+    """``torch.cumprod(x, dim=-2)`` for an ``x`` without zeros, with torch's
+    backward for that case, ``flip(cumsum(flip(out · g))) / x``, bit for bit.
+    Torch's own backward first asks the host whether ``x`` holds a zero
+    (an ``.item()``), which a captured step (a CUDA graph) cannot do."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-2)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        if x.shape[-2] == 1:
+            return g
+        return (out * g).flip(-2).cumsum(-2).flip(-2).div(x)
+
+
 def weights_and_transmittance_from_alphas(alphas: torch.Tensor):
     """NeuS compositing: ``alphas`` [N, S, 1] → (weights [N, S, 1],
-    transmittance [N, S+1, 1]) with ``T_i = Π_{j<i}(1 − a_j + 1e-7)``."""
-    t = torch.cumprod(
-        torch.cat([torch.ones_like(alphas[:, :1]), 1.0 - alphas + 1e-7], dim=-2),
-        dim=-2,
-    )
+    transmittance [N, S+1, 1]) with ``T_i = Π_{j<i}(1 − a_j + 1e-7)``; the
+    factors are never zero for alphas in [0, 1]."""
+    t = _CumprodNonzero.apply(torch.cat([torch.ones_like(alphas[:, :1]), 1.0 - alphas + 1e-7], dim=-2))
     weights = alphas * t[:, :-1]
     return weights, t
 

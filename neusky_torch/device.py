@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Union
 
 import torch
@@ -17,3 +18,12 @@ def resolve_device(device: Optional[Union[str, torch.device]] = "cuda") -> torch
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def device_constant(values, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``torch.tensor(values)`` (a number or nested tuples) built once per
+    (values, dtype, device).  A step reads its constants from here, so it
+    builds no tensor from host data per call and can be captured as a CUDA
+    graph.  Shared: never write into it."""
+    return torch.tensor(values, dtype=dtype, device=device)

@@ -147,8 +147,11 @@ def fit_eval_latents(
 
     Default path: all ``steps`` batches are drawn on the host first,
     copied to the device at once, and the loss trace is read once at the
-    end.  ``host_loop=True`` draws, copies and reads step by step (the
-    reference the tests hold the default path to)."""
+    end; on the card (the model without a mesh) each step copies its slice
+    of the batches into the captured step's buffers and replays it
+    (``make_eval_latent_step``'s default ``graphed``), as JAX runs the fit
+    as one ``lax.scan``.  ``host_loop=True`` draws, copies and reads step by
+    step, eagerly (the reference the tests hold the default path to)."""
     if batch_fn is None:
         if image_idx is None:
             n_eval = max(datamanager.num_eval, 1)
@@ -160,7 +163,7 @@ def fit_eval_latents(
         init_latent = prior_init_latent(model.config)
     params = _eval_fit_params(params, init_latent)
     optimizer = build_eval_latent_optimizer(params, lr, lr_final, steps, scale_only=scale_only)
-    step_fn = make_eval_latent_step(model, optimizer)
+    step_fn = make_eval_latent_step(model, optimizer, graphed=False if host_loop else None)
 
     if host_loop:
         return params, [float(step_fn(params, _stack_batches([batch_fn()], model.device, squeeze=True), float(i)))

@@ -8,22 +8,36 @@ optimizer state.  Each schedule is evaluated at optax's update count —
 the number of updates applied before this one, so the first update uses
 ``schedule(0)``.  :func:`build_eval_latent_optimizer` is the test-time
 fit's Adam over the eval group alone.
+
+A schedule takes an int (a Python float back) or a count tensor (a 0-d
+float32 tensor back, computed on its device in float32 as optax's
+schedules compute).  On a CUDA device :class:`GroupedAdam` keeps its count
+and each group's learning rate as device tensors and runs
+``torch.optim.Adam(capturable=True)``, so an update can be captured in a
+CUDA graph (``neusky_torch/parallel/graphs.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
+from neusky_torch.device import device_constant
 from neusky_torch.tree import tree_items
 
 
 def cosine_decay_schedule(lr_init: float, max_steps: int, warm_up_end: int = 500,
-                          learning_rate_alpha: float = 0.05) -> Callable[[int], float]:
-    def schedule(step: int) -> float:
+                          learning_rate_alpha: float = 0.05) -> Callable:
+    def schedule(step):
+        if isinstance(step, torch.Tensor):  # neusky_tpu/engine/optimizers.py:33-42
+            step = step.to(torch.float32)
+            warm = torch.clamp(step / max(warm_up_end, 1), 0.0, 1.0)
+            t = torch.clamp((step - warm_up_end) / max(max_steps - warm_up_end, 1), 0.0, 1.0)
+            decay = learning_rate_alpha + (1.0 - learning_rate_alpha) * 0.5 * (1.0 + torch.cos(math.pi * t))
+            return lr_init * torch.where(step < warm_up_end, warm, decay)
         warm = min(max(step / max(warm_up_end, 1), 0.0), 1.0)
         t = min(max((step - warm_up_end) / max(max_steps - warm_up_end, 1), 0.0), 1.0)
         decay = learning_rate_alpha + (1.0 - learning_rate_alpha) * 0.5 * (1.0 + math.cos(math.pi * t))
@@ -33,8 +47,17 @@ def cosine_decay_schedule(lr_init: float, max_steps: int, warm_up_end: int = 500
 
 
 def exponential_decay_schedule(lr_init: float, lr_final: float, max_steps: int,
-                               warmup_steps: int = 0, lr_pre_warmup: float = 1e-8) -> Callable[[int], float]:
-    def schedule(step: int) -> float:
+                               warmup_steps: int = 0, lr_pre_warmup: float = 1e-8) -> Callable:
+    def schedule(step):
+        if isinstance(step, torch.Tensor):  # neusky_tpu/engine/optimizers.py:54-70
+            step = step.to(torch.float32)
+            log_init, log_final = torch.log(device_constant((lr_init, lr_final), torch.float32, step.device))
+            t = torch.clamp((step - warmup_steps) / max(max_steps - warmup_steps, 1), 0.0, 1.0)
+            decay = torch.exp(log_init * (1.0 - t) + log_final * t)
+            if warmup_steps <= 0:
+                return decay
+            ramp = torch.sin(0.5 * math.pi * torch.clamp(step / warmup_steps, 0.0, 1.0))
+            return torch.where(step < warmup_steps, lr_pre_warmup + (lr_init - lr_pre_warmup) * ramp, decay)
         if step < warmup_steps:
             ramp = math.sin(0.5 * math.pi * min(max(step / warmup_steps, 0.0), 1.0))
             return lr_pre_warmup + (lr_init - lr_pre_warmup) * ramp
@@ -57,12 +80,12 @@ class OptimizerGroupConfig:
     weight_decay: float = 0.0
 
 
-def _group_schedule(g: OptimizerGroupConfig) -> Callable[[int], float]:
+def _group_schedule(g: OptimizerGroupConfig) -> Callable:
     if g.schedule == "cosine":
         return cosine_decay_schedule(g.lr, g.max_steps, g.warm_up_end, g.learning_rate_alpha)
     if g.schedule == "exponential":
         return exponential_decay_schedule(g.lr, g.lr_final, g.max_steps, g.warmup_steps)
-    return lambda step: g.lr
+    return lambda step: torch.full_like(step, g.lr, dtype=torch.float32) if isinstance(step, torch.Tensor) else g.lr
 
 
 def default_neusky_optimizer_groups(max_steps: int = 100001) -> Dict[str, OptimizerGroupConfig]:
@@ -95,7 +118,15 @@ class GroupedAdam:
     parameter tensors in place (JAX returns new arrays).  ``label_fn`` maps
     a leaf's ``"a/b/c"`` path to its group (default: the top-level key's
     :func:`param_group_label`); leaves of no group in ``groups`` are
-    frozen."""
+    frozen.
+
+    On a CUDA device the update is capturable: the count and the learning
+    rates are device tensors, the schedules run on the device and Adam is
+    ``capturable`` (its bias corrections on the device too); the zero
+    gradients of leaves that got none are made once.  ``count`` reads the
+    count as an int either way.  :meth:`load_state_dict` replaces the state
+    tensors and bumps ``generation``, which a captured step reads to
+    capture again."""
 
     def __init__(self, params: Dict[str, dict], groups: Dict[str, OptimizerGroupConfig],
                  label_fn: Optional[Callable[[str], str]] = None):
@@ -104,15 +135,39 @@ class GroupedAdam:
         for label, t in labelled:
             t.requires_grad_(label in groups)
         torch_groups: List[dict] = []
-        self.schedules: List[Callable[[int], float]] = []
+        self.schedules: List[Callable] = []
         for name, g in groups.items():
             leaves = [t for label, t in labelled if label == name]
             if not leaves:
                 continue
             torch_groups.append({"params": leaves, "lr": 0.0, "eps": g.eps, "name": name})
             self.schedules.append(_group_schedule(g))
-        self.optimizer = torch.optim.Adam(torch_groups, betas=(0.9, 0.999))
-        self.count = 0
+        device = torch_groups[0]["params"][0].device if torch_groups else torch.device("cpu")
+        self.capturable = device.type == "cuda"
+        self._lrs: List[torch.Tensor] = []
+        if self.capturable:
+            self._lrs = [torch.zeros((), device=device) for _ in torch_groups]
+            for group, lr in zip(torch_groups, self._lrs):
+                group["lr"] = lr
+            self._count: Any = torch.zeros((), dtype=torch.int64, device=device)
+        else:
+            self._count = 0
+        self.optimizer = torch.optim.Adam(torch_groups, betas=(0.9, 0.999), capturable=self.capturable)
+        self._zero_grads: Dict[int, torch.Tensor] = {}
+        self.generation = 0
+
+    @property
+    def count(self) -> int:
+        """Updates applied so far (a host read of the device count on the
+        card)."""
+        return int(self._count)
+
+    @count.setter
+    def count(self, value: int) -> None:
+        if self.capturable:
+            self._count.fill_(int(value))
+        else:
+            self._count = int(value)
 
     @property
     def group_names(self) -> List[str]:
@@ -124,21 +179,40 @@ class GroupedAdam:
     @torch.no_grad()
     def step(self):
         for group, schedule in zip(self.optimizer.param_groups, self.schedules):
-            group["lr"] = schedule(self.count)
+            if self.capturable:
+                group["lr"].copy_(schedule(self._count))
+            else:
+                group["lr"] = schedule(self._count)
             for p in group["params"]:
                 if p.grad is None:  # optax sees a zero gradient
-                    p.grad = torch.zeros_like(p)
+                    if id(p) not in self._zero_grads:
+                        self._zero_grads[id(p)] = torch.zeros_like(p)
+                    p.grad = self._zero_grads[id(p)]
         self.optimizer.step()
-        self.count += 1
+        self._count += 1
 
     def state_dict(self) -> dict:
         """The Adam moments and step counts (by parameter position) and the
-        update count the schedules read."""
-        return {"adam": self.optimizer.state_dict(), "count": self.count}
+        update count the schedules read; the groups' learning rates as
+        floats, on either device."""
+        adam = self.optimizer.state_dict()
+        adam["param_groups"] = [{**g, "lr": float(g["lr"]), "capturable": False} for g in adam["param_groups"]]
+        return {"adam": adam, "count": self.count}
 
     def load_state_dict(self, state: dict) -> None:
+        """Load ``state`` (written on either device): new state tensors, so
+        ``generation`` moves on."""
         self.optimizer.load_state_dict(state["adam"])
+        for i, group in enumerate(self.optimizer.param_groups):
+            group["capturable"] = self.capturable
+            if self.capturable:
+                group["lr"] = self._lrs[i].fill_(float(group["lr"]))
+                for p in group["params"]:
+                    st = self.optimizer.state.get(p, {})
+                    if "step" in st:
+                        st["step"] = st["step"].to(device=p.device, dtype=torch.float32)
         self.count = int(state["count"])
+        self.generation += 1
 
 
 def build_eval_latent_optimizer(

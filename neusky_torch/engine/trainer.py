@@ -82,7 +82,12 @@ class Trainer:
         optimizer_groups: Optional[Dict[str, opt_mod.OptimizerGroupConfig]] = None,
         device="cuda",
         mesh=None,
+        graphed: Optional[bool] = None,
     ):
+        """``graphed`` as the step factories' (``parallel/mesh.py``): None
+        captures the training step as a CUDA graph on the card without a
+        mesh (and its eval passes' latent fits the same way), False runs it
+        eagerly; True raises on the CPU or with a mesh."""
         self.device = resolve_device(device)
         if model.device != self.device or datamanager.device != self.device:
             raise ValueError("model, datamanager and trainer must share one device")
@@ -102,7 +107,7 @@ class Trainer:
         groups = optimizer_groups or opt_mod.default_neusky_optimizer_groups(config.max_num_iterations)
         self.optimizer = opt_mod.GroupedAdam(self.params, groups)
         make_step = make_train_step_split if config.use_split_step else make_train_step
-        self.train_step = make_step(model, pipeline_config, self.optimizer, mesh)
+        self.train_step = make_step(model, pipeline_config, self.optimizer, mesh, graphed)
         self.step = 0
         self.history: list = []
         self.writer = None
@@ -187,6 +192,7 @@ class Trainer:
         stream moves to the step (``DataManager.reseed``).  The checkpoint
         holds no generator state: the draw stream goes on from this
         trainer's seed, as JAX's does, so a resumed run is not the run that
-        did not stop, draw for draw."""
+        did not stop, draw for draw.  A captured step warms up and captures
+        again over the loaded Adam state (``GroupedAdam.generation``)."""
         self.step = resume_into(Path(path), step, self.params, self.optimizer)
         self.datamanager.reseed(self.step)

@@ -20,6 +20,7 @@ import torch
 
 from neusky_torch.core.rays import RayBundle
 from neusky_torch.core.spherical import draw_sphere_uniforms, random_points_on_unit_sphere, ray_sphere_intersection
+from neusky_torch.device import device_constant
 from neusky_torch.fields.ddf import DDFFieldConfig, DirectionalDistanceField
 from neusky_torch.models import losses as L
 
@@ -64,10 +65,10 @@ def get_localised_transforms(positions: torch.Tensor) -> torch.Tensor:
     positions [M, 3] → [M, 3, 3] whose columns are (x, y, z) local.  At the
     poles, where up × inward vanishes, x falls back to the world x axis."""
     p = -positions
-    up = torch.tensor([0.0, 0.0, 1.0], dtype=p.dtype, device=p.device)
+    up = device_constant((0.0, 0.0, 1.0), p.dtype, p.device)
     x_local = torch.cross(up.expand_as(p), p, dim=-1)
     x_norm = torch.linalg.norm(x_local, dim=-1, keepdim=True)
-    x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=p.dtype, device=p.device)
+    x_axis = device_constant((1.0, 0.0, 0.0), p.dtype, p.device)
     x_local = torch.where(x_norm > 1e-6, x_local / torch.clamp(x_norm, min=1e-12), x_axis)
     z_local = torch.cross(p, x_local, dim=-1)
     z_local = z_local / torch.clamp(torch.linalg.norm(z_local, dim=-1, keepdim=True), min=1e-12)

@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from neusky_torch.device import device_constant
+
 EPS = 1.0e-7
 
 
@@ -103,7 +105,7 @@ def hashgrid_density_loss(grid_alphas: torch.Tensor) -> torch.Tensor:
 
 
 def ground_plane_loss(normal_pred: torch.Tensor, ground_mask: torch.Tensor) -> torch.Tensor:
-    up = torch.tensor([0.0, 0.0, 1.0], device=normal_pred.device)
+    up = device_constant((0.0, 0.0, 1.0), torch.float32, normal_pred.device)
     gm = ground_mask.reshape(-1, 1)
     return monosdf_normal_loss(normal_pred * gm, up.expand_as(normal_pred) * gm)
 

@@ -44,7 +44,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -231,6 +230,28 @@ class NeuSkyModel:
         self.num_directions = self.illumination_sampler.actual_num_directions
         self.ddf = DDFModel(config.ddf, ddf_radius=config.ddf_radius) if config.ddf is not None else None
         self.mesh = None
+        self._constant_cache: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+
+    def _constants(self, device) -> Dict[str, torch.Tensor]:
+        """The config's constants that the forward reads, as tensors built
+        once per device (a step builds no tensor from host data, so it can
+        be captured): the AABB, the occlusion sigmoid's fixed scale, the
+        threshold's decay ends and log rate (float32, as JAX's), the probe's
+        linear background."""
+        device = torch.device(device)
+        if device not in self._constant_cache:
+            c = self.config
+            s = c.scene_aabb_scale
+            start, end = c.ddf_radius * 2.0, c.losses.vis_target_min_bias
+            f32 = dict(dtype=torch.float32, device=device)
+            self._constant_cache[device] = {
+                "aabb": torch.tensor([[-s] * 3, [s] * 3], **f32),
+                "sigmoid_scale": torch.tensor(c.visibility_sigmoid_scale, **f32),
+                "vis_end": torch.tensor(end, **f32),
+                "vis_log_rate": torch.log(torch.tensor(end / start, **f32)) / c.losses.vis_steps_until_min_bias,
+                "probe_background": sRGB_to_linear(torch.tensor(c.gt_probe_background, **f32)),
+            }
+        return self._constant_cache[device]
 
     def set_mesh(self, mesh) -> "NeuSkyModel":
         """Run as one rank of ``mesh`` (a ``DeviceMesh`` with axes
@@ -361,9 +382,7 @@ class NeuSkyModel:
         c = self.config
         if c.collider_shape == "sphere":
             return sphere_collider(ray_bundle, c.collider_radius, c.collider_near)
-        s = c.scene_aabb_scale
-        aabb = torch.tensor([[-s] * 3, [s] * 3], dtype=torch.float32, device=ray_bundle.origins.device)
-        return aabb_collider(ray_bundle, aabb, c.collider_near)
+        return aabb_collider(ray_bundle, self._constants(ray_bundle.origins.device)["aabb"], c.collider_near)
 
     def _field_salt(self, salt: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
         """The stochastic-corner table-gradient salt, or None (exact) when
@@ -383,7 +402,7 @@ class NeuSkyModel:
 
     def _gt_probe_background(self) -> torch.Tensor:
         """The probe's sky background, linear [3]."""
-        return sRGB_to_linear(torch.tensor(self.config.gt_probe_background, dtype=torch.float32, device=self.device))
+        return self._constants(self.device)["probe_background"]
 
     def _select_latents(self, params, train: bool, fitting_eval_latents: bool):
         """(latents [I, L, 3], scales [I]): the train group while training,
@@ -568,24 +587,26 @@ class NeuSkyModel:
             result["sdf_at_termination"] = sdf
         return result
 
-    def _visibility_threshold(self, params, step: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _visibility_threshold(self, params, step) -> Tuple[torch.Tensor, torch.Tensor]:
         """(threshold distance, sigmoid scale) of the occlusion sigmoid:
-        learnable, exponentially decayed over the steps, or fixed."""
+        learnable, exponentially decayed over the steps, or fixed.  ``step``
+        is a float or a 0-d tensor; the decay is JAX's float32 ``jnp.where``
+        (``neusky_tpu/models/neusky.py:616-618``), on the device for a tensor
+        step."""
         c = self.config
         m = c.losses.vis_sigmoid_method
         if m == "learnable":
             vs = params["visibility_sigmoid"]
             return vs["visibility_threshold"], vs["sigmoid_scale"]
-        scale = torch.tensor(c.visibility_sigmoid_scale, device=self.device)
-        if m == "exponential_decay":
-            start = c.ddf_radius * 2.0
-            end = c.losses.vis_target_min_bias
-            steps = c.losses.vis_steps_until_min_bias
-            if step >= steps:
-                return torch.tensor(end, device=self.device), scale
-            rate = -math.log(end / start) / steps
-            return start * torch.exp(torch.tensor(-rate * step, device=self.device)), scale
-        return torch.tensor(c.losses.vis_target_min_bias, device=self.device), scale
+        k = self._constants(self.device)
+        if m != "exponential_decay":
+            return k["vis_end"], k["sigmoid_scale"]
+        steps = c.losses.vis_steps_until_min_bias
+        start = c.ddf_radius * 2.0
+        if not isinstance(step, torch.Tensor):
+            return (k["vis_end"] if step >= steps else start * torch.exp(k["vis_log_rate"] * step)), k["sigmoid_scale"]
+        step = step.to(torch.float32)
+        return torch.where(step >= steps, k["vis_end"], start * torch.exp(k["vis_log_rate"] * step)), k["sigmoid_scale"]
 
     def _hashgrid_density_samples(self, params, jitter, dirs, salt) -> torch.Tensor:
         """NeuS alphas on a perturbed regular grid (empty-space prior)."""
@@ -865,7 +886,7 @@ class NeuSkyModel:
         ``data`` mesh axis (``ray_rows``) sum them over the data shards
         first, so the metrics are the global batch's."""
         sq = (outputs["rgb"] - batch["image"]) ** 2
-        sums = [sq.sum(), sq.new_tensor(float(sq.numel()))]
+        sums = [sq.sum(), sq.new_full((), float(sq.numel()))]
         if "mask" in batch:
             fg = batch["mask"][..., 1:2]
             sums += [torch.sum(fg * sq), torch.sum(fg)]

@@ -16,6 +16,11 @@ the scene and vMF rays (:meth:`NeuSkyModel.forward_with_ddf_gt`); its
 draws are then those of one ``forward`` over both, and the DDF half draws
 only the vMF rays and the multi-view points.
 
+:func:`draw_step` makes every draw of one step ahead of it, in the step's
+own order, so a step given them draws nothing (the captured step draws
+eagerly and copies them in).  ``step`` is a float or a 0-d tensor (a
+captured step's device input).
+
 ``eval_latent_loss_fn`` is the loss of the test-time eval-latent fit.
 """
 
@@ -79,7 +84,7 @@ def scene_loss_fn(
     model: NeuSkyModel,
     params,
     batch: Dict[str, Any],
-    step: float,
+    step,
     draws: Optional[dict] = None,
     generator: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
@@ -156,12 +161,49 @@ def ddf_fit_loss_fn(
     return _sum(vis_losses, model.device), {"loss_dict": vis_losses, "metrics": metrics}
 
 
+def _fused_gt_pass(model: NeuSkyModel, pipeline_config: PipelineConfig) -> bool:
+    """Whether the joint step runs the fused ground-truth pass."""
+    fit_ddf = model.config.fit_visibility_field and model.ddf is not None
+    return fit_ddf and model.config.fused_ddf_gt_pass and not pipeline_config.stop_sdf_gradients
+
+
+def draw_step(
+    model: NeuSkyModel,
+    pipeline_config: PipelineConfig,
+    batch: Dict[str, Any],
+    generator: Optional[torch.Generator],
+    split: bool = False,
+    draws: Optional[dict] = None,
+) -> dict:
+    """Every draw one training step makes (``draws`` completed), in the
+    order the eager step makes them, so the step given the result draws
+    nothing from ``generator`` and computes what it computes unhelped.
+    The fused step (:func:`train_loss_fn`) with the fused ground-truth
+    pass: the DDF half's vMF rays and multi-view points, then the draws of
+    one ``forward`` over the scene and vMF rays; otherwise, and in the
+    split step (``split``): the scene forward's draws, then ``"ddf"``
+    (:func:`draw_ddf_fit`) when the visibility field is fitted.  The
+    eval-latent step draws nothing."""
+    d = dict(draws or {})
+    ddf = d.pop("ddf", None)
+    n = batch["ray_bundle"].num_rays if "ray_bundle" in batch else batch["pixel_coords"].shape[0]
+    if _fused_gt_pass(model, pipeline_config) and not split:
+        ddf = draw_ddf_fit(model, pipeline_config, ddf, generator, with_gt=False)
+        s = pipeline_config.visibility_train_sampler
+        d = model.draw(d, generator, n, s.num_samples_on_sphere * s.num_rays_per_sample)
+    else:
+        d = model.draw(d, generator, n)
+        if model.config.fit_visibility_field and model.ddf is not None:
+            ddf = draw_ddf_fit(model, pipeline_config, ddf, generator)
+    return {**d, "ddf": ddf} if ddf is not None else d
+
+
 def train_loss_fn(
     model: NeuSkyModel,
     pipeline_config: PipelineConfig,
     params,
     batch: Dict[str, Any],
-    step: float,
+    step,
     draws: Optional[dict] = None,
     generator: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
@@ -171,7 +213,7 @@ def train_loss_fn(
     fit_ddf = model.config.fit_visibility_field and model.ddf is not None
     draws = dict(draws or {})
     ddf_draws = draws.pop("ddf", None)
-    if fit_ddf and model.config.fused_ddf_gt_pass and not pipeline_config.stop_sdf_gradients:
+    if _fused_gt_pass(model, pipeline_config):
         d = draw_ddf_fit(model, pipeline_config, ddf_draws, generator, with_gt=False)
         vis_bundle = vmf_ddf_samples(pipeline_config.visibility_train_sampler, d["vmf"],
                                      ddf_sphere_radius=model.config.ddf_radius)
@@ -200,7 +242,7 @@ def eval_latent_loss_fn(
     model: NeuSkyModel,
     params,
     batch: Dict[str, Any],
-    step: float,
+    step,
     rotation: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Loss of test-time latent fitting: the eval-mode forward with the sky

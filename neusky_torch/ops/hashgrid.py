@@ -33,6 +33,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from neusky_torch.device import device_constant
 from neusky_torch.ops.hashgrid_cuda import (
     _sample_corner,
     scatter_levels,
@@ -555,8 +556,7 @@ def _cheap_hash_u_all(n: int, l: int, salt: torch.Tensor) -> torch.Tensor:
 
 def _golden_u_all(stoch_u: torch.Tensor, l: int) -> torch.Tensor:
     """[N] base uniforms → [L, N]; row lvl == remainder(u + (φ·lvl % 1), 1)."""
-    shifts = torch.tensor([(0.6180339887 * lvl) % 1.0 for lvl in range(l)], dtype=stoch_u.dtype,
-                          device=stoch_u.device)
+    shifts = device_constant(tuple((0.6180339887 * lvl) % 1.0 for lvl in range(l)), stoch_u.dtype, stoch_u.device)
     return torch.remainder(stoch_u[None, :] + shifts[:, None], 1.0)
 
 

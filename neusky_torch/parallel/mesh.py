@@ -27,6 +27,16 @@ which is the one-process step on the whole batch:
 The backend is the caller's: ``nccl`` with a card a rank, ``gloo`` on the
 CPU or where ranks share a card (gloo runs ``all_reduce`` and
 ``broadcast`` on CUDA tensors, the only collectives used).
+
+``graphed`` on the three step factories plays the part of JAX's jit with
+donated buffers: True runs the step as one CUDA graph replay a call
+(:class:`~neusky_torch.parallel.graphs.CapturedStep`: the draws made
+eagerly by :func:`~neusky_torch.models.pipeline.draw_step` and copied in,
+the params updated in place), False eagerly, op by op from Python, and
+None (the default) captures on a CUDA device without a mesh and runs
+eagerly elsewhere.  ``graphed=True`` on the CPU or with a mesh raises (gloo
+collectives cannot be captured), and so does a graphed step given other
+params or inputs of another structure than its first call's.
 """
 
 from __future__ import annotations
@@ -44,11 +54,13 @@ from neusky_torch.models.neusky import NeuSkyModel
 from neusky_torch.models.pipeline import (
     PipelineConfig,
     ddf_fit_loss_fn,
+    draw_step,
     eval_latent_loss_fn,
     scene_loss_fn,
     train_loss_fn,
 )
 from neusky_torch.parallel.collectives import average_grads, mesh_axis
+from neusky_torch.parallel.graphs import CapturedStep
 from neusky_torch.tree import tree_leaves
 
 BACKENDS = ("nccl", "gloo")
@@ -163,13 +175,41 @@ def _finish(params, mesh, total, loss_dict):
     return scalars.pop("total_loss"), scalars
 
 
+def _graphed(graphed: Optional[bool], model: NeuSkyModel, mesh) -> bool:
+    """Whether a step factory captures (see the module docstring)."""
+    on_mesh = mesh is not None or model.mesh is not None
+    if graphed is None:
+        return model.device.type == "cuda" and not on_mesh
+    if graphed and model.device.type != "cuda":
+        raise ValueError(f"graphed=True needs a CUDA device, the model is on {model.device}")
+    if graphed and on_mesh:
+        raise ValueError("graphed=True with a mesh: the mesh step runs eagerly (its collectives are not captured)")
+    return bool(graphed)
+
+
+def _graph_train_step(step_fn, model, pipeline_config, optimizer, split: bool) -> Callable:
+    """``step_fn`` captured: each call makes the step's draws eagerly
+    (:func:`draw_step`), then replays; ``.captured`` is the
+    :class:`CapturedStep`."""
+    captured = CapturedStep(lambda params, step, batch, draws: step_fn(params, batch, step, draws), optimizer)
+
+    def graphed_step(params, batch, step, draws: Optional[dict] = None, generator: Optional[torch.Generator] = None):
+        return captured(params, step, batch, draw_step(model, pipeline_config, batch, generator, split, draws))
+
+    graphed_step.captured = captured
+    return graphed_step
+
+
 def make_train_step(model: NeuSkyModel, pipeline_config: PipelineConfig, optimizer: GroupedAdam,
-                    mesh: Optional[DeviceMesh] = None) -> Callable:
+                    mesh: Optional[DeviceMesh] = None, graphed: Optional[bool] = None) -> Callable:
     """``step_fn(params, batch, step, draws=None, generator=None) → aux``;
-    parameters are updated in place.  With ``mesh`` (the model's, see
-    ``NeuSkyModel.set_mesh``) ``batch`` is this rank's shard
-    (:func:`shard_batch`), ``draws`` and ``generator`` the global step's,
-    and the aux losses and metrics are the global batch's."""
+    parameters are updated in place; ``step`` is a float or a 0-d tensor.
+    With ``mesh`` (the model's, see ``NeuSkyModel.set_mesh``) ``batch`` is
+    this rank's shard (:func:`shard_batch`), ``draws`` and ``generator``
+    the global step's, and the aux losses and metrics are the global
+    batch's.  ``graphed``: None captures the step as a CUDA graph on the
+    card without a mesh, True asks for that (and raises on the CPU or with
+    a mesh), False runs it eagerly (module docstring)."""
 
     def step_fn(params, batch, step, draws: Optional[dict] = None, generator: Optional[torch.Generator] = None):
         optimizer.zero_grad()
@@ -179,19 +219,21 @@ def make_train_step(model: NeuSkyModel, pipeline_config: PipelineConfig, optimiz
         optimizer.step()
         return {**aux, "loss_dict": loss_dict, "total_loss": total}
 
+    if _graphed(graphed, model, mesh):
+        return _graph_train_step(step_fn, model, pipeline_config, optimizer, split=False)
     return step_fn
 
 
 def make_train_step_split(model: NeuSkyModel, pipeline_config: PipelineConfig, optimizer: GroupedAdam,
-                          mesh: Optional[DeviceMesh] = None) -> Callable:
+                          mesh: Optional[DeviceMesh] = None, graphed: Optional[bool] = None) -> Callable:
     """The step in two gradient passes, as JAX's split step: the scene
     loss's backward first (its graph is freed), then the DDF fit's, which
     renders its own ground truth (never the fused pass); the two gradients
     sum in ``.grad`` before one optimizer update (with ``mesh``, one
     average over the ranks before it).  It draws as the fused step does
     (the scene's draws, then ``draws["ddf"]``), so both compute the same
-    step; the split lowers the peak memory.  Same signature as
-    :func:`make_train_step`."""
+    step; the split lowers the peak memory.  Same signature and
+    ``graphed`` as :func:`make_train_step`."""
     fit_ddf = model.config.fit_visibility_field and model.ddf is not None
 
     def step_fn(params, batch, step, draws: Optional[dict] = None, generator: Optional[torch.Generator] = None):
@@ -213,16 +255,20 @@ def make_train_step_split(model: NeuSkyModel, pipeline_config: PipelineConfig, o
         optimizer.step()
         return {"loss_dict": loss_dict, "metrics": metrics, "total_loss": total}
 
+    if _graphed(graphed, model, mesh):
+        return _graph_train_step(step_fn, model, pipeline_config, optimizer, split=True)
     return step_fn
 
 
-def make_eval_latent_step(model: NeuSkyModel, optimizer: GroupedAdam, mesh: Optional[DeviceMesh] = None) -> Callable:
+def make_eval_latent_step(model: NeuSkyModel, optimizer: GroupedAdam, mesh: Optional[DeviceMesh] = None,
+                          graphed: Optional[bool] = None) -> Callable:
     """One step of test-time latent fitting: ``step_fn(params, batch, step,
     rotation=None) → total loss`` (detached), the eval group updated in
     place by ``optimizer`` (:func:`build_eval_latent_optimizer`).  With
     ``mesh`` every rank takes the whole batch (JAX replicates it) and the
     gradient is averaged over the ranks, so the eval latents stay equal on
-    every rank."""
+    every rank.  ``graphed`` as :func:`make_train_step`'s (the eval step
+    draws nothing)."""
 
     def step_fn(params, batch, step, rotation: Optional[torch.Tensor] = None):
         optimizer.zero_grad()
@@ -232,4 +278,12 @@ def make_eval_latent_step(model: NeuSkyModel, optimizer: GroupedAdam, mesh: Opti
         optimizer.step()
         return total
 
-    return step_fn
+    if not _graphed(graphed, model, mesh):
+        return step_fn
+    captured = CapturedStep(lambda params, step, batch, rotation: step_fn(params, batch, step, rotation), optimizer)
+
+    def graphed_step(params, batch, step, rotation: Optional[torch.Tensor] = None):
+        return captured(params, step, batch, rotation)
+
+    graphed_step.captured = captured
+    return graphed_step

@@ -5,6 +5,7 @@ and the equirectangular grid of the envmap panels."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -27,6 +28,13 @@ def icosphere_order_for(num_directions: int) -> int:
         if err < best_err:
             best, best_err = order, err
     return best
+
+
+@functools.lru_cache(maxsize=None)
+def _icosphere_directions(order: int, device: torch.device) -> torch.Tensor:
+    """The icosphere's vertices on ``device``, built once per device (a
+    step builds no tensor from host data).  Shared: never written into."""
+    return torch.as_tensor(icosphere_vertices(order), device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +60,7 @@ class IcosahedronSampler:
         """Direction set [D, 3], rotated by one random SO(3) matrix when
         rotation applies.  ``rotation_normals`` is the explicit draw (four
         standard normals); without it one is drawn from ``generator``."""
-        dirs = torch.as_tensor(self.directions_np, device=device)
+        dirs = _icosphere_directions(icosphere_order_for(self.num_directions), torch.device(device))
         do_rot = self.apply_random_rotation if apply_random_rotation is None else apply_random_rotation
         if not do_rot:
             return dirs

@@ -138,22 +138,35 @@ def anneal_bias(x, slope: float):
     return slope * x / ((slope - 1.0) * x + 1.0)
 
 
+def proposal_anneal(step, config: ProposalSamplerConfig):
+    """The exponent of the proposal weights at training step ``step``: a
+    float for a float step, a 0-d float32 tensor for a tensor step (JAX's
+    ``jnp.clip`` on a traced step, so a captured step reads it on the
+    device), 1.0 for None."""
+    if step is None:
+        return 1.0
+    if isinstance(step, torch.Tensor):
+        x = torch.clamp(step.to(torch.float32) / config.anneal_max_num_iters, 0.0, 1.0)
+    else:
+        x = min(max(step / config.anneal_max_num_iters, 0.0), 1.0)
+    return anneal_bias(x, config.anneal_slope)
+
+
 def proposal_sample(
     ray_bundle: RayBundle,
     density_fns: List[Callable[[torch.Tensor], torch.Tensor]],
     config: ProposalSamplerConfig,
     train: bool = True,
-    step: Optional[float] = None,
+    step=None,
     jitters: Optional[Sequence[Optional[torch.Tensor]]] = None,
     generator: Optional[torch.Generator] = None,
 ):
     """Full proposal pass → (final RaySamples, weights_list, samples_list).
-    ``density_fns[i](positions [N, S, 3]) → densities [N, S, 1]``."""
+    ``density_fns[i](positions [N, S, 3]) → densities [N, S, 1]``; ``step``
+    (a float, a 0-d tensor or None) anneals the weights
+    (:func:`proposal_anneal`)."""
     num_iters = len(config.num_proposal_samples)
-    if step is not None:
-        anneal = anneal_bias(min(max(step / config.anneal_max_num_iters, 0.0), 1.0), config.anneal_slope)
-    else:
-        anneal = 1.0
+    anneal = proposal_anneal(step, config)
     jitters = list(jitters) if jitters is not None else [None] * (num_iters + 1)
 
     weights_list, samples_list = [], []

@@ -262,18 +262,183 @@ def test_bf16_matmul_on_card_matches_the_cpu_product(cuda_device):
 @pytest.mark.cuda
 def test_bench_step_launches_k1_seven_times_a_step(cuda_device, monkeypatch):
     """``neusky_torch.bench.build`` on the card (bench's configuration (a),
-    the fused step): 2 steps, each launching K1 once per differentiated
-    hash-grid encode, 7 times, with a finite loss; 2,304 rays a step."""
+    the fused step, captured): 3 steps (the first eager, the second
+    captured and replayed, the third replayed), each launching K1 once per
+    differentiated hash-grid encode, 7 times (counted through the
+    replays), with a finite loss; 2,304 rays a step."""
     from neusky_torch import bench
 
     for name in ("NEUSKY_BENCH_SPLIT", "NEUSKY_BENCH_NATIVE"):
         monkeypatch.delenv(name, raising=False)
     monkeypatch.setenv("NEUSKY_BF16_MAPPING", "1")
     b = bench.build(cuda_device)
-    assert b.rays_per_step == 2304
-    for s in range(2):
+    assert b.rays_per_step == 2304 and b.step.captured.replays == 0
+    for s in range(3):
         before = k1.launches[k1.KERNEL_NAME]
         aux = b.step(b.params, b.datamanager.next_train(s), float(s), generator=b.generator)
         torch.cuda.synchronize()
         assert k1.launches[k1.KERNEL_NAME] - before == 7
         assert torch.isfinite(aux["total_loss"])
+    assert b.step.captured.replays == 2 and b.step.captured.capture_s > 0
+
+
+# ---------------------------------------------------------------------------
+# the captured step (parallel/graphs.py) against the eager step, on the tiny
+# configuration; phase 16 of chip_smoke.py holds bench's (a) the same way
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _tiny(device, split=False, graphed=None, seed=0):
+    """``bench.Bench`` of the tiny joint configuration: 2 images × 16 rays,
+    2 × 16 vMF rays, 8 sky rays; the steps draw from a generator seeded 1."""
+    from neusky_torch.bench import Bench
+    from neusky_torch.configs.tiny_config import tiny_model_config
+    from neusky_torch.data.datamanager import DataManager, DataManagerConfig
+    from neusky_torch.data.pixel_sampler import PixelSamplerConfig
+    from neusky_torch.data.synthetic import SyntheticSceneConfig, generate_synthetic_scene
+    from neusky_torch.engine.optimizers import GroupedAdam, default_neusky_optimizer_groups
+    from neusky_torch.models.neusky import NeuSkyModel
+    from neusky_torch.models.pipeline import PipelineConfig
+    from neusky_torch.parallel import mesh
+    from neusky_torch.sampling.ddf_sampler import DDFSamplerConfig
+
+    cfg = tiny_model_config(2, 2)
+    model = NeuSkyModel(cfg, device=device)
+    pipe = PipelineConfig(visibility_train_sampler=DDFSamplerConfig(num_samples_on_sphere=2, num_rays_per_sample=16),
+                          num_sky_rays=8)
+    params = model.init(torch.Generator(device).manual_seed(seed))
+    opt = GroupedAdam(params, default_neusky_optimizer_groups(100))
+    step = (mesh.make_train_step_split if split else mesh.make_train_step)(model, pipe, opt, graphed=graphed)
+    scene = generate_synthetic_scene(SyntheticSceneConfig(num_cameras=2, width=32, height=32))
+    dm = DataManager(DataManagerConfig(pixel_sampler=PixelSamplerConfig(2, 16), num_sky_rays=8),
+                     scene["cameras"], scene["images"], scene["masks"], device=device)
+    return Bench(cfg, model, pipe, dm, params, opt, step, torch.Generator(device).manual_seed(1), 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [False, True], ids=["fused", "split"])
+def test_graphed_step_equals_eager_step(cuda_device, split):
+    """4 steps of the tiny joint configuration, eager and captured, from the
+    same params, batches and generator seed (the step a device scalar to
+    both): the losses of every step within 1e-4 relative (the atomics'
+    order), K1 7 a step in both (counted through the replays); then a 5th
+    step of both from the captured run's state, its updates within phase
+    3's bounds but where a gradient near zero flips Adam's update
+    (``chip_smoke.same_state_step``)."""
+    cs = _chip_smoke()
+    runs = {}
+    for graphed in (False, True):
+        b = _tiny(cuda_device, split, graphed)
+        before = k1.launches[k1.KERNEL_NAME]
+        losses = [float(b.step(b.params, b.datamanager.next_train(s), torch.full((), float(s), device=cuda_device),
+                               generator=b.generator)["total_loss"]) for s in range(4)]
+        torch.cuda.synchronize()
+        runs[graphed] = (b, losses, k1.launches[k1.KERNEL_NAME] - before)
+        assert hasattr(b.step, "captured") == graphed
+    (be, le, ke), (bg, lg, kg) = runs[False], runs[True]
+    assert all(abs(g - e) <= 1e-4 * abs(e) for e, g in zip(le, lg)), (le, lg)
+    assert ke == kg == 4 * 7
+    close = cs.same_state_step(be, bg, split, 4)
+    assert close["ok"] and close["loss_rel"] <= 1e-4, close
+
+
+@pytest.mark.cuda
+def test_graphed_step_raises_where_a_capture_fails(cuda_device, monkeypatch):
+    """A step that reads a value on the host (``.item()``) runs as its eager
+    warm-up but cannot be captured: the capturing call raises, and the
+    params are as the warm-up left them (it did not run eagerly)."""
+    from neusky_torch.parallel import mesh
+    from neusky_torch.tree import tree_items
+
+    real = mesh.train_loss_fn
+
+    def syncing(*a, **k):
+        total, aux = real(*a, **k)
+        return total + 0.0 * total.item(), aux
+
+    monkeypatch.setattr(mesh, "train_loss_fn", syncing)
+    b = _tiny(cuda_device, graphed=True)
+    b.step(b.params, b.datamanager.next_train(0), 0.0, generator=b.generator)
+    kept = {k: v.detach().clone() for k, v in tree_items(b.params)}
+    with pytest.raises(RuntimeError, match="capturing"):
+        b.step(b.params, b.datamanager.next_train(1), 1.0, generator=b.generator)
+    torch.cuda.synchronize()
+    assert all(torch.equal(v, kept[k]) for k, v in tree_items(b.params))
+
+
+@pytest.mark.cuda
+def test_graphed_step_raises_on_a_changed_input(cuda_device):
+    """After its capture the step refuses a batch of another shape and other
+    params, and runs neither; ``graphed=True`` with a mesh raises and the
+    default with a mesh is eager."""
+    from neusky_torch.parallel import mesh
+    from neusky_torch.tree import tree_items, tree_map
+
+    b = _tiny(cuda_device, graphed=True)
+    for s in range(3):
+        b.step(b.params, b.datamanager.next_train(s), float(s), generator=b.generator)
+    kept = {k: v.detach().clone() for k, v in tree_items(b.params)}
+    batch = b.datamanager.next_train(3)
+    with pytest.raises(ValueError, match="shape"):
+        b.step(b.params, {**batch, "pixel_coords": batch["pixel_coords"][:-1]}, 3.0, generator=b.generator)
+    with pytest.raises(ValueError, match="params"):
+        b.step(tree_map(lambda t: t.detach().clone(), b.params), batch, 3.0, generator=b.generator)
+    assert all(torch.equal(v, kept[k]) for k, v in tree_items(b.params))
+    b.model.set_mesh(object())
+    with pytest.raises(ValueError, match="mesh"):
+        mesh.make_train_step(b.model, b.pipeline, b.optimizer, graphed=True)
+    assert not hasattr(mesh.make_train_step(b.model, b.pipeline, b.optimizer), "captured")
+
+
+@pytest.mark.cuda
+def test_graphed_trainer_resumes_as_the_eager_trainer(cuda_device, tmp_path):
+    """A captured trainer saves at step 2, trains 2 more steps, and loads
+    step 2 back into the same params and Adam (its graph was captured over
+    the old Adam state, so it warms up and captures again); an eager
+    trainer loads the same checkpoint.  The Adam state after the load is
+    the checkpoint's bit for bit; from the same generator state and batch
+    stream the next 3 steps' losses agree within 1e-4 relative, and one
+    more step from one state (the captured trainer's replay against the
+    eager one) within phase 3's bounds (``chip_smoke.same_state_step``)."""
+    import types
+
+    from neusky_torch.engine.trainer import Trainer, TrainerConfig
+
+    cs = _chip_smoke()
+
+    def trainer(graphed):
+        b = _tiny(cuda_device)
+        return Trainer(TrainerConfig(max_num_iterations=100, steps_per_log=1, steps_per_save=1000,
+                                     steps_per_eval_image=1000, seed=0),
+                       b.model, b.pipeline, b.datamanager, device=cuda_device, graphed=graphed)
+
+    a, b = trainer(None), trainer(False)
+    a.run(2)
+    a.save(str(tmp_path))
+    a.run(2)
+    graph, replays = a.train_step.captured.graph, a.train_step.captured.replays
+    assert graph is not None and replays == 3
+    a.load(str(tmp_path), 2)
+    b.load(str(tmp_path), 2)
+    assert cs._equal_state(a.optimizer.state_dict(), b.optimizer.state_dict())
+    b.generator.set_state(a.generator.get_state())
+    la = [r["total_loss"] for r in a.run(3)[-3:]]
+    lb = [r["total_loss"] for r in b.run(3)[-3:]]
+    assert a.train_step.captured.replays == replays + 2 and a.train_step.captured.graph is not graph
+    assert all(abs(x - y) <= 1e-4 * abs(y) for x, y in zip(la, lb)), (la, lb)
+    as_bench = lambda t: types.SimpleNamespace(model=t.model, pipeline=t.pipeline_config,  # noqa: E731
+                                               datamanager=t.datamanager, params=t.params,
+                                               optimizer=t.optimizer, step=t.train_step)
+    close = cs.same_state_step(as_bench(b), as_bench(a), False, a.step)
+    assert close["ok"] and close["loss_rel"] <= 1e-4, close
+

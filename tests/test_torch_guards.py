@@ -1,8 +1,9 @@
 """Guards of the PyTorch port: it imports nothing of the JAX side (and
 neither Pillow nor plyfile when a module is imported), its
 entry points refuse to silently run on the CPU, its config dataclasses
-mirror the JAX ones field for field, and its converted RENI++ prior equals
-the orbax checkpoint the JAX package restores."""
+mirror the JAX ones field for field, its converted RENI++ prior equals
+the orbax checkpoint the JAX package restores, and its steps build no
+tensor from host data per call (so a CUDA graph can capture them)."""
 
 import ast
 import dataclasses
@@ -13,7 +14,7 @@ import pytest
 import torch
 
 import neusky_torch
-from torch_parity import TORCH_CONFIGS
+from torch_parity import TORCH_CONFIGS, one_torch_thread  # noqa: F401 (one_torch_thread: a fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "neusky_tpu")
@@ -132,10 +133,11 @@ def test_nccl_with_more_ranks_than_cards_raises(call, monkeypatch, tmp_path):
     assert not torch.distributed.is_initialized() and not (tmp_path / "store").exists()
 
 
-@pytest.mark.parametrize("command", ["main", "split_ab"])
+@pytest.mark.parametrize("command", ["main", "split_ab", "graph_path", "graph_spread", "bench_ab"])
 def test_chip_smoke_commands_refuse_without_a_card(command, monkeypatch, capsys):
-    """``chip_smoke.py`` and its ``split_ab`` command exit non-zero and
-    print no result where ``torch.cuda.is_available()`` is false."""
+    """``chip_smoke.py`` and its ``split_ab``, ``graph_path``,
+    ``graph_spread`` and ``bench_ab`` commands exit non-zero and print no
+    result where ``torch.cuda.is_available()`` is false."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
@@ -445,3 +447,123 @@ def test_variant_branches_run_and_no_docstring_calls_them_unported(path):
         if "not ported" in sentence:
             for word in PORTED_VARIANTS[path]:
                 assert word.lower() not in sentence.lower(), (path, sentence.strip())
+
+
+# -- the steps build no tensor from host data -------------------------------
+
+STEP_VARIANTS = ("fused", "fused_gt_pass", "split", "eval")
+
+
+class _HostTensors(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts ``aten.lift_fresh``: what ``torch.tensor``, ``as_tensor``,
+    ``from_numpy`` and ``new_tensor`` dispatch when they build a tensor from
+    host data, a copy from pageable memory on the card, which a CUDA graph
+    cannot capture.  (``aten.scalar_tensor`` from a Python number in
+    ``torch.where`` builds a CPU scalar that a kernel takes as an argument:
+    no copy, so it is not counted.)"""
+
+    def __init__(self):
+        super().__init__()
+        self.count = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten.lift_fresh.default:
+            self.count += 1
+        return func(*args, **(kwargs or {}))
+
+
+def _tiny_step_inputs(variant):
+    """(model, pipeline, params, batch) of the tiny configuration with the
+    AABB collider and the exponentially decayed visibility threshold."""
+    from neusky_torch.configs.tiny_config import tiny_model_config
+    from neusky_torch.data.datamanager import DataManager, DataManagerConfig
+    from neusky_torch.data.pixel_sampler import PixelSamplerConfig
+    from neusky_torch.data.synthetic import SyntheticSceneConfig, generate_synthetic_scene
+    from neusky_torch.models.neusky import NeuSkyModel
+    from neusky_torch.models.pipeline import PipelineConfig
+    from neusky_torch.sampling.ddf_sampler import DDFSamplerConfig
+
+    cfg = tiny_model_config(2, 2)
+    cfg = dataclasses.replace(cfg, collider_shape="aabb", fused_ddf_gt_pass=variant == "fused_gt_pass",
+                              losses=dataclasses.replace(cfg.losses, vis_sigmoid_method="exponential_decay"))
+    pipe = PipelineConfig(visibility_train_sampler=DDFSamplerConfig(num_samples_on_sphere=2, num_rays_per_sample=16),
+                          num_sky_rays=8)
+    scene = generate_synthetic_scene(SyntheticSceneConfig(num_cameras=2, width=32, height=32))
+    dm = DataManager(DataManagerConfig(pixel_sampler=PixelSamplerConfig(2, 16), num_sky_rays=8),
+                     scene["cameras"], scene["images"], scene["masks"], device="cpu")
+    batch = dm.next_train(0)
+    model = NeuSkyModel(cfg, device="cpu")
+    return model, pipe, model.init(torch.Generator().manual_seed(0)), batch
+
+
+@pytest.mark.parametrize("variant", STEP_VARIANTS)
+def test_steps_build_no_tensor_from_host_data(variant, one_torch_thread):  # noqa: F811
+    """One step of each kind on the tiny configuration (with the AABB
+    collider and the exponentially decayed visibility threshold, whose
+    constants the model builds once per device) after a first step that
+    fills the per-device caches: no tensor is built from host data in the
+    model, the losses, the encodes, the sampler or the optimizer."""
+    from neusky_torch.engine import optimizers as opt
+    from neusky_torch.parallel import mesh
+
+    model, pipe, params, batch = _tiny_step_inputs(variant)
+    gen = torch.Generator().manual_seed(1)
+    if variant == "eval":
+        step_fn = mesh.make_eval_latent_step(model, opt.build_eval_latent_optimizer(params, max_steps=10))
+        run = lambda i: step_fn(params, batch, float(i))  # noqa: E731
+    else:
+        make = mesh.make_train_step_split if variant == "split" else mesh.make_train_step
+        step_fn = make(model, pipe, opt.GroupedAdam(params, opt.default_neusky_optimizer_groups(100)))
+        run = lambda i: step_fn(params, batch, float(i), generator=gen)  # noqa: E731
+    run(0)
+    mode = _HostTensors()
+    with mode:
+        run(1)
+    assert mode.count == 0, f"{mode.count} tensors built from host data in one {variant} step"
+
+
+@pytest.mark.parametrize("variant", STEP_VARIANTS)
+def test_step_losses_and_backward_read_nothing_on_the_host(variant, one_torch_thread):  # noqa: F811
+    """The losses and the backward of each kind of step (the optimizer
+    aside: on the card it is Adam's capturable update) read no value on the
+    host: the CPU profiler, which records the ops ATen calls from C++ too,
+    sees no ``aten::_local_scalar_dense`` (``.item()``, ``bool``,
+    ``float`` of a tensor).  Such a read cannot be captured in a CUDA graph;
+    torch's own ``cumprod`` backward makes one (it asks whether the input
+    holds a zero), so the compositing uses ``core/rays.py``'s cumprod."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from neusky_torch.models import pipeline
+    from neusky_torch.tree import tree_items
+
+    model, pipe, params, batch = _tiny_step_inputs(variant)
+    for k, v in tree_items(params):
+        v.requires_grad_(not k.startswith(("eval_latents", "illumination_decoder")) or variant == "eval")
+    gen, step = torch.Generator().manual_seed(1), torch.tensor(3.0)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        if variant == "eval":
+            pipeline.eval_latent_loss_fn(model, params, batch, step).backward()
+        elif variant == "split":
+            pipeline.scene_loss_fn(model, params, batch, step, None, gen)[0].backward()
+            pipeline.ddf_fit_loss_fn(model, pipe, params, batch, None, gen)[0].backward()
+        else:
+            pipeline.train_loss_fn(model, pipe, params, batch, step, None, gen)[0].backward()
+    reads = [e.name for e in prof.events() if e.name == "aten::_local_scalar_dense"]
+    assert not reads, f"{len(reads)} host reads in the {variant} step's losses and backward"
+
+
+def test_compositing_cumprod_is_torchs():
+    """``core/rays.py``'s cumprod (no host read in its backward) equals
+    ``torch.cumprod`` along the samples, values and gradients bit for bit,
+    on factors without zeros as the compositing's are."""
+    from neusky_torch.core.rays import _CumprodNonzero
+
+    g = torch.Generator().manual_seed(0)
+    for shape in ((7, 13, 1), (3, 2, 1), (4, 1, 1)):
+        x = (torch.rand(shape, generator=g) * 0.9 + 1e-7).requires_grad_(True)
+        ct = torch.randn(shape, generator=g)
+        want = torch.cumprod(x, dim=-2)
+        (want_grad,) = torch.autograd.grad(want, x, ct)
+        got = _CumprodNonzero.apply(x)
+        (got_grad,) = torch.autograd.grad(got, x, ct)
+        assert torch.equal(got, want) and torch.equal(got_grad, want_grad), shape
