@@ -3,10 +3,11 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; no phase's failure is passed over).
-Every single-process training step and eval-latent fit on the card runs
-captured as a CUDA graph (``neusky_torch/parallel/graphs.py``:
-the first call of a step eager, the second captured, then replays), as
-the entry points run it; K1's launches are counted through the replays,
+Every single-process training step, eval-latent fit, DDF and RENI
+trainer step, envmap and rotation fit, render chunk and LPIPS on the card
+runs captured as a CUDA graph (``neusky_torch/parallel/graphs.py``: the
+first call eager, the second captured, then replays), as the entry
+points run them; K1's launches are counted through the replays,
 and where a phase keeps K1's inputs it takes them from one eager step on
 the same params.  Phase 13, the mesh, runs eagerly (its collectives are
 not captured):
@@ -61,7 +62,8 @@ not captured):
    renders and scores of the 3 validation views) and ``render neusky``
    from the NeRF-OSR run's checkpoint; K1's count is zeroed before each
    command and read after it (and at each logged step): 7 a training step,
-   0 in eval and render;
+   0 in eval and render; ``train neusky`` runs its eval pass at step 4 (the
+   peak allocated and reserved memory of a run with eval on);
 8. in phase 7's directory, from its ``train neusky`` run: ``train ddf``
    (the DDF alone against the frozen scene: 5×256 FiLM-SIREN, 8 × 128 vMF
    rays at κ = 20 and 256 sky rays a step, 20 steps; every non-DDF leaf of
@@ -164,13 +166,26 @@ not captured):
    of its own), capture seconds and peak memory of each; then the 250-step
    eval-latent fit captured against ``host_loop=True``: the fitted eval
    latents within 1e-4 of their scale, ms a fit step;
-17. one JSON line listing every kernel (K1 per step of phase 12's split
+17. the other captured paths against their eager selves, on bench (a)'s
+   model (seed-0 params, the prior) and phase 6's eval ring: 20 DDF
+   trainer steps (losses within 1e-4 at each, ``ddf_field`` within 1e-4 of
+   scale after), 20 RENI trainer steps at the canonical decoder (losses
+   within 1e-4), the envmap fit (4 skies, 30 steps: latents within 1e-4
+   of scale, PSNRs within 0.01 dB), the rotation fit (30 steps: angles
+   within 1e-4 rad, scales within 1e-4), the render of a 64×48 image (one
+   padded chunk) and a 64×64 one with and without a rotation (every map
+   within 1e-6 of scale) and LPIPS on it (1e-6); each path's ms a step
+   (rays/s for the render), busy share, host calls, ``capture_s``, peak
+   allocated and reserved memory (the allocator's cache emptied first) and
+   K1 launches (0);
+18. one JSON line listing every kernel (K1 per step of phase 12's split
    step, on its own inputs, with their shapes), the card line, and the
    final ``{"ok": true, "device": ...}`` line.
 
 ``split_ab()`` is a separate command: the split and the fused step in
 turns, more steps each (see its docstring); ``mesh_path()`` runs phase 13
-alone, ``graph_path()`` phase 16; ``graph_spread()`` measures how far two
+alone, ``graph_path()`` phase 16, ``graph_paths()`` phase 17;
+``graph_spread()`` measures how far two
 runs of a step part (the ground of phase 16's bound on the params) and
 ``bench_ab()`` runs the port's bench at a parent tree and at this one in
 turns.
@@ -181,6 +196,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -982,7 +998,9 @@ def cli_train(argv, expected: int, steps: int, card: str):
 
     cli.print_record = keep
     try:
+        gc.collect()
         torch.cuda.synchronize()
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         k1.launches[k1.KERNEL_NAME] = 0
         t0 = time.perf_counter()
@@ -997,7 +1015,8 @@ def cli_train(argv, expected: int, steps: int, card: str):
     bad = [(r["step"], k, v) for r in records for k, v in r.items() if isinstance(v, float) and not math.isfinite(v)]
     check(len(records) == steps and not bad, f"cli {argv[1]}: {len(records)} log lines, non-finite {bad}")
     log(f"cli train {argv[1]} ({card}): {steps} steps in {wall:.3f} s (model, data and prior set-up included); "
-        f"K1 launches per step {per_step}")
+        f"K1 launches per step {per_step}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+        f"allocated / {torch.cuda.max_memory_reserved() / 2**30:.3f} GiB reserved")
     return [t for t, _ in stamps], records, torch.cuda.max_memory_allocated() / 2**30
 
 
@@ -1024,7 +1043,8 @@ def run_cli_path(card: str):
 
         stamps, records, train_peak = cli_train(
             ["train", "neusky", *common, "--max-iterations", str(CLI_STEPS), "--output-dir", str(run),
-             "--trainer.steps_per_save", "2", "--trainer.steps_per_eval_image", "1000000000"], expected, CLI_STEPS, card)
+             "--trainer.steps_per_save", "2", "--trainer.steps_per_eval_image", str(CLI_STEPS)], expected, CLI_STEPS,
+            card)
         saved = sorted(p.name for p in (run / "checkpoints").iterdir())
         check(saved == ["step-000000002", "step-000000004"], f"cli train checkpoints: {saved}")
         gaps = np.diff(stamps)  # steps 2..4; a save at step 2 falls in step 3's gap
@@ -1090,20 +1110,21 @@ def _checkpoint_leaves(base: Path):
 
 def run_cli_ddf(card: str, tmp: Path, common, run: Path):
     """``train ddf`` from ``run``: K1 zeroed before and read after; each
-    step synchronised and stamped (the loss call) for its time."""
+    step synchronised and stamped (its draws, made before the step's
+    replay) for its time."""
     from neusky_torch import cli
     from neusky_torch.engine import ddf_trainer
 
     stamps, records, trainers = [], [], []
-    loss, printer = ddf_trainer.DDFTrainer.loss, cli.print_record
+    draw_step, printer = ddf_trainer.DDFTrainer.draw_step, cli.print_record
 
-    def stamped_loss(self, *a, **kw):
+    def stamped_draws(self, *a, **kw):
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
         trainers[:] = [self]
-        return loss(self, *a, **kw)
+        return draw_step(self, *a, **kw)
 
-    ddf_trainer.DDFTrainer.loss = stamped_loss
+    ddf_trainer.DDFTrainer.draw_step = stamped_draws
     cli.print_record = lambda record: records.append(record) or printer(record)
     out = tmp / "ddf"
     try:
@@ -1111,7 +1132,7 @@ def run_cli_ddf(card: str, tmp: Path, common, run: Path):
         _, wall, peak = measured(lambda: cli.main(["train", "ddf", *common, "--load-dir", str(run), "--output-dir",
                                                    str(out), "--max-iterations", str(DDF_STEPS)]))
     finally:
-        ddf_trainer.DDFTrainer.loss, cli.print_record = loss, printer
+        ddf_trainer.DDFTrainer.draw_step, cli.print_record = draw_step, printer
     launches = k1_launches()
     check(launches == 0, f"K1 launched {launches} times in cli train ddf")
     check(len(records) == 1 and records[0]["step"] == DDF_STEPS and all(math.isfinite(v) for v in records[0].values()),
@@ -1237,7 +1258,7 @@ def run_reni_prior(card: str):
         f"{q['clip_fit_loss_last']:.4f}, all gates {q['all_pass']} (exit {rc}); read back through "
         "illumination_prior_dir")
     trainer = trainers[0]
-    step = lambda: trainer._train_step(trainer.draw())
+    step = lambda: trainer.train_step(trainer.draw())
     _, one_s, _ = measured(step)
     log(f"RENI++ trainer step ({card}): {one_s * 1e3:.3f} ms (one more step, synchronised)")
     profile_call(step, one_s, card, "RENI++ trainer step", top=8)
@@ -1786,7 +1807,8 @@ def check_ddf_variant_cuda_vs_cpu(card: str):
         for _, v in tree_items(trainer.ddf_params):
             v.requires_grad_(True)
         before = k1_launches()
-        total, _ = trainer.loss(_to(draws, dev), trainer._sky_rays())
+        d = trainer.draw_step(_to(draws, dev))
+        total, _ = trainer.loss(d, trainer.sky_rays(d))
         total.backward()
         out[dev] = (float(total.detach()), {k: v.grad.detach().cpu() for k, v in tree_items(trainer.ddf_params)},
                     k1_launches() - before)
@@ -2597,6 +2619,306 @@ def run_graph_path(card: str) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the other captured paths against their eager selves
+
+
+PATH_STEPS = 20  # DDF and RENI steps compared, captured against eager
+PATH_REL = 1e-4  # their losses; the DDF, the envmap latents (of scale); the rotation angles (rad) and scales
+PATH_FIT_STEPS = 30  # the envmap and rotation fits compared
+PATH_FIT_TIMED = 5  # the steps of the eager fit timed and profiled
+RENDER_REL = 1e-6  # every RENDER_KEYS map, of its scale
+LPIPS_ABS = 1e-6
+PSNR_DB = 0.01
+PATH_TIMED = 10  # timed calls of a step, a render or LPIPS after the compared ones
+
+
+@contextlib.contextmanager
+def recorded_graphs(*modules):
+    """The ``CapturedStep`` objects that ``modules`` build inside the block
+    (each module's name ``CapturedStep`` swapped for a subclass that keeps
+    them): a fit's graph, built inside the fit, reports its ``capture_s``."""
+    from neusky_torch.parallel import graphs
+
+    made = []
+
+    class Kept(graphs.CapturedStep):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    saved = [(m, m.CapturedStep) for m in modules]
+    for m, _ in saved:
+        m.CapturedStep = Kept
+    try:
+        yield made
+    finally:
+        for m, c in saved:
+            m.CapturedStep = c
+
+
+def path_side(label: str, run, again, card: str, calls: int = PATH_TIMED, per_call: int = 1) -> tuple:
+    """One side (eager or captured) of a phase-17 path: ``run()`` the
+    compared work with the allocator's cache emptied first (its peak
+    allocated and reserved memory and K1's launches read around it), then
+    ``again()`` timed ``calls`` times ending in one synchronise and once
+    profiled → (run's result, {"ms" a unit of work (a call over
+    ``per_call``), "busy_share", "device_ms", "host_calls", "peak_gib",
+    "peak_reserved_gib", "k1_launches"})."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1.launches[k1.KERNEL_NAME] = 0
+    out = run()
+    torch.cuda.synchronize()
+    rec = {"peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30}
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        again()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / calls
+    rec["k1_launches"] = k1_launches()
+    prof = profile_call(again, wall, card, label, top=5)
+    rec.update(ms=wall / per_call * 1e3, busy_share=prof and prof["busy_share"], device_ms=prof and prof["device_ms"],
+               host_calls=prof and prof["host_calls"])
+    return out, rec
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    scale = float(want.abs().max())
+    diff = float((got - want).abs().max())
+    return diff / scale if scale > 0 else diff
+
+
+def _loss_rel(got: dict, want: dict) -> float:
+    return max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-12) for k in want)
+
+
+def graph_ddf(model, params, make_dm, card: str, steps: int = PATH_STEPS, sampler=None, num_sky_rays: int = 256):
+    """The DDF trainer's step, eager then captured, from ``params`` over
+    ``make_dm()``'s sky rays and one list of draws: each of ``steps``
+    records' losses within PATH_REL, ``ddf_field`` within PATH_REL of its
+    scale after them → the path's record."""
+    from neusky_torch.engine import ddf_trainer
+
+    cfg = ddf_trainer.DDFTrainerConfig(max_num_iterations=100001, steps_per_log=1, num_sky_rays=num_sky_rays,
+                                       **({"sampler": sampler} if sampler is not None else {}))
+    sides, draws = {}, None
+    for graphed in (False, True):
+        with recorded_graphs(ddf_trainer) as made:
+            t = ddf_trainer.DDFTrainer(cfg, model, params, datamanager=make_dm(), graphed=graphed)
+        draws = draws or [t.draw() for _ in range(steps)]
+        run = lambda: (t.run(steps, draws=draws),  # noqa: E731,B023
+                       {k: v.detach().clone() for k, v in tree_items(t.ddf_params)})
+        again = lambda: t.train_step(t.ddf_params, None, t.draw_step())  # noqa: E731,B023
+        out, rec = path_side(f"phase 17 ddf step {'captured' if graphed else 'eager'}", run, again, card)
+        sides[graphed] = (out, rec, made[0].capture_s if made else None)
+    ((he, pe), re_, _), ((hg, pg), rg, cap) = sides[False], sides[True]
+    errs = {"loss_rel": max(_loss_rel(g, e) for e, g in zip(he, hg)), "ddf_rel": max(_rel(pg[k], pe[k]) for k in pe)}
+    return _path_record("ddf_step", re_, rg, cap, errs, errs["loss_rel"] <= PATH_REL and errs["ddf_rel"] <= PATH_REL)
+
+
+def graph_reni(envmaps, field_cfg, card: str, steps: int = PATH_STEPS, pixels: int = 2048):
+    """The RENI trainer's step, eager then captured, on ``envmaps`` from one
+    seed and one list of draws: each of ``steps`` steps' losses within
+    PATH_REL → the path's record."""
+    from neusky_torch.engine import reni_trainer
+
+    cfg = reni_trainer.RENITrainerConfig(field=field_cfg, pixels_per_step=pixels)
+    sides, draws = {}, None
+    for graphed in (False, True):
+        with recorded_graphs(reni_trainer) as made:
+            t = reni_trainer.RENITrainer(cfg, envmaps, device="cuda", graphed=graphed)
+        draws = draws or [t.draw() for _ in range(steps)]
+        run = lambda: [{k: float(v) for k, v in t.train_step(d).items()} for d in draws]  # noqa: E731,B023
+        again = lambda: t.train_step(t.draw())  # noqa: E731,B023
+        out, rec = path_side(f"phase 17 RENI step {'captured' if graphed else 'eager'}", run, again, card)
+        sides[graphed] = (out, rec, made[0].capture_s if made else None)
+    (le, re_, _), (lg, rg, cap) = sides[False], sides[True]
+    errs = {"loss_rel": max(_loss_rel(g, e) for e, g in zip(le, lg))}
+    return _path_record("reni_step", re_, rg, cap, errs, errs["loss_rel"] <= PATH_REL)
+
+
+def replay(graph):
+    """One more call of a captured step on its static inputs as they
+    stand (its last call's)."""
+    return graph(graph._static_params, graph._step, *graph._static_inputs)
+
+
+def fit_sides(label: str, fit, card: str, steps: int) -> dict:
+    """Both sides of a fit path: ``fit(graphed, n)`` runs a fit of ``n``
+    steps → its result, copied.  Each side runs the compared fit of
+    ``steps``.  The captured side's ms a step is PATH_TIMED replays of the
+    fit's graph (the step on its last inputs), one of them profiled; the
+    eager side's is the compared fit's wall time less a fit of
+    PATH_FIT_TIMED steps over the steps between them (the set-up and the
+    PSNR decode cancel), and its busy share that of the short fit, which
+    is profiled → {graphed: (result, record, capture_s)}."""
+    from neusky_torch.engine import eval_loop, reni_trainer
+
+    walls = {}
+
+    def timed(graphed, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fit(graphed, n)
+        torch.cuda.synchronize()
+        walls.setdefault((graphed, n), time.perf_counter() - t0)
+        return out
+
+    sides = {}
+    for graphed in (False, True):
+        with recorded_graphs(eval_loop, reni_trainer) as made:
+            if graphed:
+                out, rec = path_side(f"phase 17 {label} captured", lambda: timed(True, steps),
+                                     lambda: replay(made[-1]), card)  # noqa: B023
+            else:
+                out, rec = path_side(f"phase 17 {label} eager", lambda: timed(False, steps),
+                                     lambda: timed(False, PATH_FIT_TIMED), card, calls=1, per_call=PATH_FIT_TIMED)
+                rec["ms"] = (walls[(False, steps)] - walls[(False, PATH_FIT_TIMED)]) / (steps - PATH_FIT_TIMED) * 1e3
+        sides[graphed] = (out, rec, made[0].capture_s if made else None)
+    return sides
+
+
+def graph_envmap_fit(field, decoder, envmaps, card: str, steps: int = PATH_FIT_STEPS, pixels: int = 2048):
+    """``fit_latents_to_envmaps`` eager then captured on the same pixel
+    draws: the latents within PATH_REL of their scale, the PSNRs within
+    PSNR_DB → the path's record (:func:`fit_sides`)."""
+    from neusky_torch.engine import reni_trainer
+
+    sides = fit_sides("envmap fit", lambda graphed, n: reni_trainer.fit_latents_to_envmaps(
+        field, decoder, envmaps, steps=n, pixels_per_step=pixels, graphed=graphed), card, steps)
+    ((ze, pe), re_, _), ((zg, pg), rg, cap) = sides[False], sides[True]
+    errs = {"latent_rel": _rel(torch.from_numpy(zg), torch.from_numpy(ze)),
+            "psnr_db": float(np.abs(pg - pe).max()), "psnr": [float(x) for x in pg]}
+    return _path_record("envmap_fit", re_, rg, cap, errs,
+                        errs["latent_rel"] <= PATH_REL and errs["psnr_db"] <= PSNR_DB and np.isfinite(pg).all())
+
+
+class EvalPool:
+    """A stand-in for the protocol's compare pool over an eval
+    datamanager: ``lighting_eval_batch`` cycles its eval slots."""
+
+    def __init__(self, dm):
+        self.dm, self.i = dm, 0
+
+    def lighting_eval_batch(self, pool: str):
+        self.i += 1
+        return self.dm.eval_latent_batch((self.i - 1) % self.dm.num_eval)
+
+
+def graph_rotation_fit(model, params, make_dm, gt_latents, card: str, steps: int = PATH_FIT_STEPS):
+    """``fit_eval_rotation`` eager then captured on the same batches
+    (:class:`EvalPool` over ``make_dm()``): the angles within PATH_REL rad,
+    the scales within PATH_REL → the path's record (:func:`fit_sides`)."""
+    from neusky_torch.engine import eval_loop
+
+    def fit(graphed, n):
+        out, gamma, losses = eval_loop.fit_eval_rotation(model, params, EvalPool(make_dm()), gt_latents, steps=n,
+                                                         graphed=graphed)
+        return out["eval_latents"]["eval_scale"].clone(), gamma, losses
+
+    sides = fit_sides("rotation fit", fit, card, steps)
+    ((se, ge, le), re_, _), ((sg, gg, lg), rg, cap) = sides[False], sides[True]
+    errs = {"angle_rad": float(np.abs(gg - ge).max()), "scale": float((sg - se).abs().max()),
+            "loss_last": [le[-1], lg[-1]]}
+    return _path_record("rotation_fit", re_, rg, cap, errs, errs["angle_rad"] <= PATH_REL and errs["scale"] <= PATH_REL)
+
+
+def graph_render(model, params, bundles, card: str, rotation=None, chunk_size: int = 4096):
+    """``render_camera`` eager then captured (the model's shared chunk
+    function) over each of ``bundles`` (the first with a short last chunk)
+    with the sky of slot 0, ``rotation`` or not: every RENDER_KEYS map
+    within RENDER_REL of its scale → (the path's record, the captured
+    renders).  ms: a render of the last bundle; rays/s from it."""
+    from neusky_torch.engine import eval_loop
+
+    sides = {}
+    for graphed in (False, True):
+        with recorded_graphs(eval_loop) as made:
+            run = lambda: [render_camera(model, params, rb, 0, chunk_size=chunk_size, rotation=rotation,  # noqa: E731,B023
+                                         graphed=graphed) for rb in bundles]
+            again = lambda: render_camera(model, params, bundles[-1], 0, chunk_size=chunk_size,  # noqa: E731,B023
+                                          rotation=rotation, graphed=graphed)
+            out, rec = path_side(f"phase 17 {'rotating ' if rotation is not None else ''}render "
+                                 f"{'captured' if graphed else 'eager'}", run, again, card, calls=3)
+        rec["rays_per_s"] = bundles[-1].num_rays / (rec["ms"] / 1e3)
+        sides[graphed] = (out, rec, made[0].capture_s if made else None)
+    (oe, re_, _), (og, rg, cap) = sides[False], sides[True]
+    errs = {"map_rel": max(_rel(torch.from_numpy(g[k]), torch.from_numpy(e[k])) for e, g in zip(oe, og) for k in e),
+            "rays": [rb.num_rays for rb in bundles]}
+    ok = errs["map_rel"] <= RENDER_REL and all(np.isfinite(v).all() for o in og for v in o.values())
+    return _path_record("rotating_chunk" if rotation is not None else "render_chunk", re_, rg, cap, errs, ok), og
+
+
+def graph_lpips(pred: np.ndarray, target: np.ndarray, card: str):
+    """LPIPS eager then captured on one pair of images: within LPIPS_ABS →
+    the path's record."""
+    from neusky_torch.engine import lpips as lp
+
+    sides = {}
+    for graphed in (False, True):
+        call = lambda: lp.lpips(pred, target, "cuda", graphed)[0]  # noqa: E731,B023
+        sides[graphed] = path_side(f"phase 17 LPIPS {'captured' if graphed else 'eager'}",
+                                   lambda: [call() for _ in range(3)], call, card)  # noqa: B023
+    (ve, re_), (vg, rg) = sides[False], sides[True]
+    # the graph of this image shape is kept for the process: it may date from an earlier phase
+    cap = lp.distance_fn(torch.device("cuda"), (1, 3, *pred.shape[:2])).captured.capture_s
+    errs = {"abs": max(abs(g - e) for e, g in zip(ve, vg)), "value": vg[-1]}
+    return _path_record("lpips", re_, rg, cap, errs, errs["abs"] <= LPIPS_ABS and math.isfinite(vg[-1]))
+
+
+def _path_record(path: str, eager: dict, graphed: dict, capture_s, errs: dict, ok: bool) -> dict:
+    return {"path": path, "ok": bool(ok), **errs, "capture_s": capture_s,
+            **{f"{kind}_{k}": v for kind, r in (("eager", eager), ("graphed", graphed)) for k, v in r.items()}}
+
+
+def run_graph_paths(card: str) -> list:
+    """Phase 17: each captured path against its eager self on bench (a)'s
+    model (seed-0 params, the converted prior) and phase 6's eval ring: the
+    DDF trainer (8 × 128 vMF rays and 256 sky rays a step), the RENI
+    trainer at the canonical decoder (16 skies at 64 px, 2,048 pixels a
+    step), the envmap fit (4 skies at 128 px), the rotation fit, the
+    render of a 64×48 image (one chunk, padded) and a 64×64 one, with and
+    without a rotation, and LPIPS on the render; K1 0 on each."""
+    from neusky_torch.data.sky_generator import generate_sky_corpus
+    from neusky_torch.engine.checkpoint import prior_init_latent
+    from neusky_torch.core.spherical import rot_z
+
+    t0 = time.perf_counter()
+    with knobs_set(BENCH_KNOBS):
+        cfg = bench.model_config()
+    model = NeuSkyModel(cfg, device="cuda")
+    params = load_illumination_prior(model.init(torch.Generator("cuda").manual_seed(0)), cfg)
+    make_dm = lambda: eval_datamanager("cuda")  # noqa: E731
+    dm = make_dm()
+    short = generate_synthetic_scene(SyntheticSceneConfig(num_cameras=2, width=64, height=48, **EVAL_RING))
+    bundles = [short["cameras"].to("cuda").generate_rays(0), dm.eval_image_bundle(0)[0]]
+    rows = [graph_ddf(model, params, make_dm, card)]
+    rows.append(graph_reni(generate_sky_corpus(16, width=64, seed=3),
+                           dataclasses.replace(cfg.illumination, fixed_decoder=False), card))
+    rows.append(graph_envmap_fit(model.illumination, params["illumination_decoder"],
+                                 generate_sky_corpus(4, width=128, seed=4), card))
+    z = torch.as_tensor(prior_init_latent(cfg), device="cuda")
+    gt = z[None] + 0.1 * torch.randn((2, *z.shape), generator=torch.Generator("cuda").manual_seed(5), device="cuda")
+    rows.append(graph_rotation_fit(model, params, make_dm, gt, card))
+    row, renders = graph_render(model, params, bundles, card)
+    rows.append(row)
+    rows.append(graph_render(model, params, bundles, card, rotation=rot_z(torch.tensor(0.7, device="cuda")))[0])
+    _, image = dm.eval_image_bundle(0)
+    h, w = dm.eval_cameras.height, dm.eval_cameras.width
+    rows.append(graph_lpips(np.clip(renders[-1]["rgb"].reshape(h, w, 3), 0, 1),
+                            np.asarray(image["image"]).reshape(h, w, 3), card))
+    for r in rows:
+        log(f"phase 17 {r['path']} ({card}): " + json.dumps(r))
+    bad = [r["path"] for r in rows if not r["ok"] or r["eager_k1_launches"] or r["graphed_k1_launches"]]
+    check(not bad, f"phase 17: captured paths differ from their eager selves or launched K1: {bad}")
+    log(f"phase 17 took {time.perf_counter() - t0:.3f} s")
+    return rows
+
+
 def graph_spread() -> int:
     """How far two runs of bench (a)'s fused step part in GRAPH_WARMUP +
     GRAPH_STEPS steps from the same params, draws and batches: eager
@@ -2684,6 +3006,23 @@ def graph_path() -> int:
     return 0
 
 
+def graph_paths() -> int:
+    """Phase 17 alone (the kernels built first):
+
+        python3 -c 'import chip_smoke, sys; sys.exit(chip_smoke.graph_paths())'
+    """
+    if not torch.cuda.is_available():
+        print("graph_paths: CUDA is not available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = bench.card_line()
+    build_all()
+    run_graph_paths(card)
+    print(card)
+    return 0
+
+
 def mesh_path() -> int:
     """Phase 13 alone (the kernels built first):
 
@@ -2701,6 +3040,15 @@ def mesh_path() -> int:
 
 
 # ---------------------------------------------------------------------------
+
+
+def release() -> None:
+    """Free what the last phase dropped: collect what is held in reference
+    cycles (a graph's private pool goes back to the card only once the graph
+    is freed) and empty the allocator's cache, so the next phase's reserved
+    peak is its own."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2726,19 +3074,28 @@ def main() -> int:
     sites = check_k1_main_path_inputs(joint_cfg, joint_pcfg, 8 * 128, captured)
     del captured
     run_eval_path(card)
+    release()
     check_eval_cuda_vs_cpu(card)
     run_cli_path(card)
+    release()
     t9 = time.perf_counter()
     run_reni_prior(card)
     check_reni_cuda_vs_cpu(card)
+    release()
     log(f"phase 9 took {time.perf_counter() - t9:.3f} s; the script so far {time.perf_counter() - t_start:.3f} s")
     bench_runs = run_bench_path(card)
     run_tools_path(card)
+    release()
     split = run_variants_path(card, bench_runs[0])
+    release()
     run_mesh_path(card)
     run_bench_module(card)
+    release()
     check_entry_cuda_vs_cpu(card)
     run_graph_path(card)
+    release()
+    run_graph_paths(card)
+    log(f"the script took {time.perf_counter() - t_start:.3f} s before its last lines")
     joint_k1 = {k: sum(r[k] for r in sites) for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
     log(f"phase 5's joint step K1 (unfused, float32 mapping): {main_launches} launches in {STEPS} steps, "
         + json.dumps(joint_k1) + " ms a step")

@@ -139,7 +139,8 @@ def cmd_train(args, overrides):
         trainer_config = dataclasses.replace(trainer_config, max_num_iterations=args.max_iterations)
     trainer_config = dataclasses.replace(trainer_config, output_dir=args.output_dir)
     trainer = Trainer(trainer_config, model, bundle["pipeline_config"], dm,
-                      optimizer_groups=bundle.get("optimizer_groups"), device=args.device)
+                      optimizer_groups=bundle.get("optimizer_groups"), device=args.device,
+                      graphed=False if args.eager else None)
     if args.load_dir:
         trainer.load(args.load_dir)
     trainer.run(log_fn=print_record)
@@ -178,7 +179,7 @@ def _cmd_train_ddf(args, overrides):
         max_num_iterations=args.max_iterations or ddf_bundle["trainer_config"].max_num_iterations,
         sampler=ddf_bundle["sampler_config"],
     )
-    trainer = DDFTrainer(tcfg, model, params, datamanager=dm)
+    trainer = DDFTrainer(tcfg, model, params, datamanager=dm, graphed=False if args.eager else None)
     trainer.run(log_fn=print_record)
     params["ddf_field"] = trainer.ddf_params
     save_checkpoint(Path(args.output_dir), trainer.step, params, {})
@@ -224,6 +225,8 @@ def main(argv=None):
                        help="comma-separated per-session holdout image indices; length must equal the "
                        "scene's session count")
         p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+        p.add_argument("--eager", action="store_true",
+                       help="run the steps, fits, renders and LPIPS op by op (default: CUDA graphs on the card)")
 
     args, unknown = parser.parse_known_args(argv)
     overrides = []

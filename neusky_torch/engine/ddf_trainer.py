@@ -11,8 +11,15 @@ detached and the ground-truth pass and the SDF query run under
 table-gradient scatter runs.
 
 A step's draws are ``vmf`` (:func:`~neusky_torch.sampling.ddf_sampler.draw_vmf`)
-and ``multi_view_u`` (the multi-view loss's sphere points); the sky rays
-come from the datamanager's numpy sampler, as in JAX.
+and ``multi_view_u`` (the multi-view loss's sphere points), and, with a
+datamanager, the sky rays' camera rows and pixel coordinates from its
+numpy sampler, as in JAX (``sky_rows``, ``sky_coords``; the rays are
+generated on the device inside the step).  :meth:`DDFTrainer.draw_step`
+makes them all before each step, so the step draws nothing: on the card it
+runs as one CUDA graph replay a step (``neusky_torch/parallel/graphs.py``),
+JAX's jitted step (``neusky_tpu/engine/ddf_trainer.py:137``), the cosine
+schedule reading Adam's count on the device; ``graphed=False`` runs it
+eagerly.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from neusky_torch.data.datamanager import DataManager
 from neusky_torch.engine.optimizers import GroupedAdam, OptimizerGroupConfig
 from neusky_torch.models.ddf_model import ddf_loss_dict, ddf_train_outputs
 from neusky_torch.models.neusky import NeuSkyModel
+from neusky_torch.parallel.graphs import CapturedStep, use_graph
 from neusky_torch.sampling.ddf_sampler import DDFSamplerConfig, draw_vmf, vmf_ddf_samples
 from neusky_torch.sampling.illumination import IcosahedronSampler
 from neusky_torch.tree import tree_map
@@ -51,10 +59,12 @@ class DDFTrainerConfig:
 class DDFTrainer:
     """Optimises a copy of ``frozen_params["ddf_field"]`` (``self.ddf_params``)
     against the frozen rest of ``frozen_params``, on the model's device;
-    ``frozen_params`` itself is not modified."""
+    ``frozen_params`` itself is not modified.  ``graphed``: None captures
+    the step as a CUDA graph on the card, False runs it eagerly, True
+    raises on the CPU."""
 
     def __init__(self, config: DDFTrainerConfig, model: NeuSkyModel, frozen_params: Dict,
-                 datamanager: Optional[DataManager] = None):
+                 datamanager: Optional[DataManager] = None, graphed: Optional[bool] = None):
         if model.ddf is None:
             raise ValueError("the model config has no DDF")
         self.config = config
@@ -69,6 +79,9 @@ class DDFTrainer:
         self.generator = torch.Generator(device=model.device).manual_seed(config.seed)
         self.step = 0
         self.history: List[dict] = []
+        self.train_step = self._train_step
+        if use_graph(graphed, model.device):
+            self.train_step = CapturedStep(self._train_step, self.optimizer)
 
     def draw(self) -> dict:
         s = self.config.sampler
@@ -76,16 +89,26 @@ class DDFTrainer:
                 "multi_view_u": draw_sphere_uniforms(s.num_samples_on_sphere * s.num_rays_per_sample,
                                                      self.generator, self.model.device)}
 
-    def _sky_rays(self):
-        if self.datamanager is None:
+    def draw_step(self, draws: Optional[dict] = None) -> dict:
+        """Every draw of one step, in the order the eager loop made them:
+        ``draws`` (:meth:`draw`'s keys, else drawn), then the sky rays'
+        camera rows and pixel coordinates from the datamanager's sampler as
+        device tensors ``sky_rows`` and ``sky_coords`` (none without a
+        datamanager, or where the sampler gives none)."""
+        d = dict(draws) if draws is not None else self.draw()
+        if self.datamanager is not None and "sky_rows" not in d:
+            sky = self.datamanager.train_sampler.sample_sky_rays(self.config.num_sky_rays)
+            if sky is not None:
+                dev = self.model.device
+                d["sky_rows"], d["sky_coords"] = (torch.from_numpy(a).to(dev) for a in sky)
+        return d
+
+    def sky_rays(self, draws: dict):
+        """The sky ray bundle of a step's draws (:meth:`draw_step`), or
+        None."""
+        if "sky_rows" not in draws:
             return None
-        sky = self.datamanager.train_sampler.sample_sky_rays(self.config.num_sky_rays)
-        if sky is None:
-            return None
-        dev = self.model.device
-        rows, coords = sky
-        return self.datamanager.train_cameras.generate_rays_at(torch.from_numpy(rows).to(dev),
-                                                               torch.from_numpy(coords).to(dev))
+        return self.datamanager.train_cameras.generate_rays_at(draws["sky_rows"], draws["sky_coords"])
 
     def loss(self, draws: dict, sky_ray_bundle=None):
         """(total, {"losses", "depth_psnr"}) of one step."""
@@ -114,23 +137,32 @@ class DDFTrainer:
         psnr = -10.0 * torch.log10(torch.clamp(mse / r**2, min=1e-10))
         return total, {"losses": losses, "depth_psnr": psnr}
 
+    def _train_step(self, ddf_params, _, draws: dict) -> dict:
+        """One update of ``ddf_params`` (``self.ddf_params``) from a step's
+        draws (:meth:`draw_step`) → the step's detached ``total_loss``,
+        ``depth_psnr`` and ``losses``; reads nothing on the host."""
+        self.optimizer.zero_grad()
+        total, aux = self.loss(draws, self.sky_rays(draws))
+        total.backward()
+        self.optimizer.step()
+        return {"total_loss": total.detach(), "depth_psnr": aux["depth_psnr"].detach(),
+                "losses": {k: v.detach() for k, v in aux["losses"].items()}}
+
     def run(self, num_steps: Optional[int] = None, log_fn=None, draws: Optional[Sequence[dict]] = None):
         """Train ``num_steps`` (default ``max_num_iterations``) steps; a
         record (``step``, ``total_loss``, ``depth_psnr`` and each loss) every
-        ``steps_per_log`` steps and at the last.  ``draws``: one dict per
-        step of this run (as :meth:`draw` makes), else drawn."""
+        ``steps_per_log`` steps and at the last, the only host reads.
+        ``draws``: one dict per step of this run (as :meth:`draw` makes),
+        else drawn."""
         start = self.step
         target = self.step + (num_steps or self.config.max_num_iterations)
         while self.step < target:
-            d = draws[self.step - start] if draws is not None else self.draw()
-            self.optimizer.zero_grad()
-            total, aux = self.loss(d, self._sky_rays())
-            total.backward()
-            self.optimizer.step()
+            d = self.draw_step(draws[self.step - start] if draws is not None else None)
+            out = self.train_step(self.ddf_params, None, d)
             self.step += 1
             if self.step % self.config.steps_per_log == 0 or self.step == target:
-                rec = {"step": self.step, "total_loss": float(total.detach()), "depth_psnr": float(aux["depth_psnr"].detach()),
-                       **{k: float(v.detach()) for k, v in aux["losses"].items()}}
+                rec = {"step": self.step, "total_loss": float(out["total_loss"]),
+                       "depth_psnr": float(out["depth_psnr"]), **{k: float(v) for k, v in out["losses"].items()}}
                 self.history.append(rec)
                 if log_fn:
                     log_fn(rec)

@@ -10,6 +10,11 @@ functions take no generator.  The fit updates only the eval group
 detached, so autograd records just the RENI decode → Lambertian branch and
 no hash-table gradient (K1) runs.
 
+On the card the render chunk, the eval-latent fit and the rotation fit run
+as CUDA graph replays (``neusky_torch/parallel/graphs.py``), as JAX jits
+them; ``graphed=False`` runs them eagerly, op by op, and ``graphed=True``
+on the CPU raises.
+
 ``run_eval``, ``run_nerfosr_eval`` and ``run_render`` are ``cli eval``,
 ``cli eval --protocol nerfosr`` and ``cli render``.
 """
@@ -23,6 +28,7 @@ import json
 import math
 import os
 import time
+import weakref
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -39,6 +45,7 @@ from neusky_torch.engine.optimizers import GroupedAdam, OptimizerGroupConfig, bu
 from neusky_torch.engine.reni_trainer import fit_latents_to_envmaps
 from neusky_torch.models.neusky import NeuSkyModel
 from neusky_torch.models.pipeline import eval_latent_loss_fn
+from neusky_torch.parallel.graphs import CapturedStep, use_graph
 from neusky_torch.parallel.mesh import make_eval_latent_step
 from neusky_torch.tree import tree_map
 
@@ -55,23 +62,80 @@ def eval_grad_mode(model: NeuSkyModel):
         yield
 
 
-def make_render_chunk_fn(model: NeuSkyModel, chunk_size: int = 4096) -> Tuple[Callable, int]:
+def render_chunk(model: NeuSkyModel, params, ray_bundle: RayBundle, image_indices: torch.Tensor,
+                 rotation: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """The eval forward of one chunk of rays with the sky of eval slot
+    ``image_indices`` ([1] int, on the rays' device; ``rotation`` [3, 3]
+    rotates the sky) → :data:`RENDER_KEYS`, under :func:`eval_grad_mode`.
+    Builds no tensor from host data and reads nothing on the host, so it
+    can be captured."""
+    with eval_grad_mode(model):
+        out = model.forward(
+            params, ray_bundle, image_indices,
+            torch.zeros((ray_bundle.num_rays,), dtype=torch.long, device=ray_bundle.origins.device),
+            step=0.0, train=False, rotation=rotation,
+        )
+        return {k: out[k].detach() for k in RENDER_KEYS}
+
+
+def _graphed_render(model: NeuSkyModel, graphed: Optional[bool]) -> bool:
+    return use_graph(graphed, model.device, "with a mesh: the mesh forward runs eagerly (its collectives are "
+                     "not captured)" if model.mesh is not None else None)
+
+
+# each model's captured render chunks, by chunk size, then by rotation or not
+_captured_chunks: "weakref.WeakKeyDictionary[NeuSkyModel, Dict]" = weakref.WeakKeyDictionary()
+
+
+def make_render_chunk_fn(model: NeuSkyModel, chunk_size: int = 4096,
+                         graphed: Optional[bool] = None) -> Tuple[Callable, int]:
     """(chunk_fn, chunk_size): ``chunk_fn(params, ray_bundle, image_idx,
-    rotation=None)`` is the eval forward of one chunk of rays with the sky
-    of eval slot ``image_idx`` (``rotation`` [3, 3] rotates it), returning
-    :data:`RENDER_KEYS`, under :func:`eval_grad_mode`."""
+    rotation=None)`` is :func:`render_chunk` of ``chunk_size`` rays with the
+    sky of eval slot ``image_idx`` (an int or a [1] device tensor).
 
-    def chunk_fn(params, ray_bundle: RayBundle, image_idx: int, rotation: Optional[torch.Tensor] = None):
+    On the card (``graphed`` None or True) it is one CUDA graph replay a
+    chunk, JAX's jitted chunk (``neusky_tpu/engine/eval_loop.py:51``): the
+    rays, the slot and the rotation are the graph's inputs and the params
+    are copied into the graph's own when they change, so one graph (one
+    for the calls without ``rotation``, one for those with it) serves every
+    chunk of every image; it takes chunks of ``chunk_size`` rays only
+    (:func:`render_camera` pads the last).  The graphs are kept per (model,
+    ``chunk_size``) and shared by every caller: ``chunk_fn.captured`` maps
+    ``rotation is not None`` to its
+    :class:`~neusky_torch.parallel.graphs.CapturedStep`.  They hold the
+    model weakly, so a dropped model frees them."""
+    captured = _graphed_render(model, graphed)
+    graphs: Dict[bool, CapturedStep] = (_captured_chunks.setdefault(model, {}).setdefault(chunk_size, {})
+                                        if captured else {})
+    model_ref = weakref.ref(model)
+
+    def chunk_fn(params, ray_bundle: RayBundle, image_idx, rotation: Optional[torch.Tensor] = None):
         dev = ray_bundle.origins.device
-        with eval_grad_mode(model):
-            out = model.forward(
-                params, ray_bundle, torch.tensor([image_idx], device=dev),
-                torch.zeros((ray_bundle.num_rays,), dtype=torch.long, device=dev),
-                step=0.0, train=False, rotation=rotation,
-            )
-            return {k: out[k].detach() for k in RENDER_KEYS}
+        idx = image_idx if isinstance(image_idx, torch.Tensor) else torch.tensor([image_idx], device=dev)
+        if not captured:
+            return render_chunk(model, params, ray_bundle, idx, rotation)
+        if ray_bundle.num_rays != chunk_size:
+            raise ValueError(f"a captured render chunk takes {chunk_size} rays, not {ray_bundle.num_rays}")
+        rotated = rotation is not None
+        if rotated not in graphs:
+            graphs[rotated] = CapturedStep(lambda p, _, rb, i, r: render_chunk(model_ref(), p, rb, i, r))
+        return graphs[rotated](params, None, ray_bundle, idx, rotation)
 
+    chunk_fn.captured = graphs
     return chunk_fn, chunk_size
+
+
+def pad_rays(ray_bundle: RayBundle, multiple: int) -> RayBundle:
+    """``ray_bundle`` padded with copies of its last ray to a multiple of
+    ``multiple`` rays (JAX ``render_camera``'s padding)."""
+    extra = -ray_bundle.num_rays % multiple
+    if not extra:
+        return ray_bundle
+
+    def pad(v: torch.Tensor) -> torch.Tensor:
+        return torch.cat([v, v[-1:].expand(extra, *v.shape[1:])], dim=0)
+
+    return RayBundle(**{f.name: pad(getattr(ray_bundle, f.name)) for f in dataclasses.fields(RayBundle)})
 
 
 def render_camera(
@@ -82,15 +146,21 @@ def render_camera(
     chunk_fn: Optional[Callable] = None,
     chunk_size: int = 4096,
     rotation: Optional[torch.Tensor] = None,
+    graphed: Optional[bool] = None,
 ) -> Dict[str, np.ndarray]:
-    """Chunked full-image render → host numpy maps [N, C].  The last chunk
-    may be short (no padding): every output is per ray."""
+    """Chunked full-image render → host numpy maps [N, C].  The rays are
+    padded with copies of the last to whole chunks and the outputs cut
+    back to N, as JAX does (``neusky_tpu/engine/eval_loop.py:67-76``), so
+    every chunk has one shape.  ``chunk_fn`` None takes the model's shared
+    :func:`make_render_chunk_fn` (``graphed`` as its)."""
     if chunk_fn is None:
-        chunk_fn, chunk_size = make_render_chunk_fn(model, chunk_size)
+        chunk_fn, chunk_size = make_render_chunk_fn(model, chunk_size, graphed)
     n = camera_ray_bundle.num_rays
-    outs = [chunk_fn(params, camera_ray_bundle.slice(s, chunk_size), image_idx, rotation)
-            for s in range(0, n, chunk_size)]
-    return {k: torch.cat([o[k] for o in outs], dim=0).cpu().numpy() for k in outs[0]}
+    padded = pad_rays(camera_ray_bundle, chunk_size)
+    idx = torch.tensor([image_idx], device=camera_ray_bundle.origins.device)
+    outs = [chunk_fn(params, padded.slice(s, chunk_size), idx, rotation)
+            for s in range(0, padded.num_rays, chunk_size)]
+    return {k: torch.cat([o[k] for o in outs], dim=0)[:n].cpu().numpy() for k in outs[0]}
 
 
 def _eval_fit_params(params, init_latent):
@@ -176,6 +246,53 @@ def fit_eval_latents(
     return params, torch.stack(trace).cpu().tolist()
 
 
+def rotation_fit_loss(model: NeuSkyModel, params, q: Dict[str, torch.Tensor], batch, step) -> torch.Tensor:
+    """The ``nerf_osr_envmap`` rotation fit's loss: the eval-latent loss of
+    ``batch`` with ``params``' eval latents and each image's sky rotated
+    about z by its session's angle (``q["rot_logit"]`` [S], sigmoid-bounded
+    to [0, 2π)) and scaled by ``q["scale"]`` [S]."""
+    rot = rot_z(torch.sigmoid(q["rot_logit"]) * 2.0 * math.pi)[batch["image_indices"]]  # [U, 3, 3]
+    p = {**params, "eval_latents": {**params["eval_latents"], "eval_scale": q["scale"]}}
+    return eval_latent_loss_fn(model, p, batch, step, rotation=rot)
+
+
+def _rotation_fit_params(params, gt_latents: torch.Tensor):
+    """Detached ``params`` with the eval latents at ``gt_latents``."""
+    frozen = tree_map(lambda t: t.detach(), params)
+    return {**frozen, "eval_latents": {**frozen["eval_latents"], "eval_latents": gt_latents.detach()}}
+
+
+def make_rotation_fit_step(model: NeuSkyModel, params, gt_latents: torch.Tensor, steps: int = 250,
+                           lr: float = 1e-1, lr_final: float = 1e-7, graphed: Optional[bool] = None):
+    """(step_fn, q): ``step_fn(q, step, batch)`` is one Adam update (eps
+    1e-15, exponential decay ``lr`` → ``lr_final`` over ``steps``) of ``q``
+    (``rot_logit`` [S], from ``eval_rotation`` where it has one entry a
+    session, else ones; ``scale`` [S], ones) on :func:`rotation_fit_loss`
+    with the eval latents fixed at ``gt_latents`` [S, D, 3] → the loss,
+    detached.  On the card (``graphed`` None or True) a CUDA graph replay
+    at a device step count."""
+    s, dev = gt_latents.shape[0], model.device
+    rot0 = params["eval_latents"].get("eval_rotation")
+    if rot0 is None or rot0.shape[0] != s:
+        rot0 = torch.ones((s,), device=dev)
+    q = {"rot_logit": rot0.detach().clone(), "scale": torch.ones((s,), device=dev)}
+    optimizer = GroupedAdam(q, {"q": OptimizerGroupConfig(lr=lr, eps=1e-15, schedule="exponential",
+                                                          lr_final=lr_final, max_steps=steps)},
+                            label_fn=lambda path: "q")
+    fixed = _rotation_fit_params(params, gt_latents.to(dev))
+
+    def step_fn(q, step, batch):
+        optimizer.zero_grad()
+        total = rotation_fit_loss(model, fixed, q, batch, step)
+        total.backward()
+        optimizer.step()
+        return total.detach()
+
+    if use_graph(graphed, dev):
+        return CapturedStep(step_fn, optimizer), q
+    return step_fn, q
+
+
 def fit_eval_rotation(
     model: NeuSkyModel,
     params,
@@ -184,39 +301,26 @@ def fit_eval_rotation(
     steps: int = 250,
     lr: float = 1e-1,
     lr_final: float = 1e-7,
+    graphed: Optional[bool] = None,
 ) -> Tuple[Dict, np.ndarray, List[float]]:
     """The ``nerf_osr_envmap`` eval fit: the eval latents are fixed at
-    ``gt_latents`` and only a per-session rotation about z (a logit,
-    sigmoid-bounded to [0, 2π), started from ``eval_rotation`` where it has
-    one entry a session, else ones) and the eval scale (from one) are fitted,
-    by Adam (eps 1e-15, exponential decay ``lr`` → ``lr_final``) over
-    ``steps`` compare-pool batches drawn up front → (params with the fitted
-    eval group, the angles [S] in radians, the loss of every step)."""
-    s = gt_latents.shape[0]
+    ``gt_latents`` and only a per-session rotation about z and the eval
+    scale are fitted (:func:`make_rotation_fit_step`) over ``steps``
+    compare-pool batches drawn up front → (params with the fitted eval
+    group, the angles [S] in radians, the loss of every step).  On the
+    card (``graphed`` None or True) each step is one CUDA graph replay, as
+    JAX runs the fit as one ``lax.scan``
+    (``neusky_tpu/engine/eval_loop.py:134``); the loss trace is read once
+    at the end."""
     dev = model.device
-    rot0 = params["eval_latents"].get("eval_rotation")
-    if rot0 is None or rot0.shape[0] != s:
-        rot0 = torch.ones((s,), device=dev)
-    q = {"rot_logit": rot0.detach().clone(), "scale": torch.ones((s,), device=dev)}
-    optimizer = GroupedAdam(q, {"q": OptimizerGroupConfig(lr=lr, eps=1e-15, schedule="exponential",
-                                                          lr_final=lr_final, max_steps=steps)},
-                            label_fn=lambda path: "q")
-    frozen = tree_map(lambda t: t.detach(), params)
-    base_eval = {**frozen["eval_latents"], "eval_latents": gt_latents.detach().to(dev)}
+    step_fn, q = make_rotation_fit_step(model, params, gt_latents, steps, lr, lr_final, graphed)
     stacked = _stack_batches([protocol.lighting_eval_batch("compare") for _ in range(steps)], dev)
     cameras = stacked.pop("cameras")
-    trace = []
-    for i in range(steps):
-        batch = {**{k: v[i] for k, v in stacked.items()}, "cameras": cameras}
-        rot = rot_z(torch.sigmoid(q["rot_logit"]) * 2.0 * math.pi)[batch["image_indices"]]  # [U, 3, 3]
-        p = {**frozen, "eval_latents": {**base_eval, "eval_scale": q["scale"]}}
-        optimizer.zero_grad()
-        total = eval_latent_loss_fn(model, p, batch, float(i), rotation=rot)
-        total.backward()
-        optimizer.step()
-        trace.append(total.detach())
+    trace = [step_fn(q, float(i), {**{k: v[i] for k, v in stacked.items()}, "cameras": cameras})
+             for i in range(steps)]
     gamma = (torch.sigmoid(q["rot_logit"]) * 2.0 * math.pi).detach().cpu().numpy()
-    out = {**params, "eval_latents": {**base_eval, "eval_scale": q["scale"].detach(),
+    fixed = _rotation_fit_params(params, gt_latents.to(dev))["eval_latents"]
+    out = {**params, "eval_latents": {**fixed, "eval_scale": q["scale"].detach(),
                                       "eval_rotation": q["rot_logit"].detach()}}
     return out, gamma, torch.stack(trace).cpu().tolist()
 
@@ -229,18 +333,21 @@ def eval_image_metrics(
     chunk_fn: Optional[Callable] = None,
     chunk_size: int = 4096,
     mask_to_building: bool = False,
+    graphed: Optional[bool] = None,
 ) -> Dict[str, Any]:
     """Render eval image ``image_idx`` with its eval slot's sky and score
     it: ``psnr``, ``ssim``, ``lpips``, ``mse``, ``num_rays_per_sec`` and
     ``fps`` of the render (which ends when its maps are on the host), and
     the maps under ``outputs``.  ``mask_to_building`` multiplies the render
     and the image by mask channel 0 first: the NeRF-OSR building mask on
-    the test split only (elsewhere channel 0 is the static mask)."""
+    the test split only (elsewhere channel 0 is the static mask).
+    ``graphed`` as :func:`make_render_chunk_fn`'s, for the render and
+    LPIPS."""
     rb, batch = datamanager.eval_image_bundle(image_idx)
     cams = datamanager.eval_cameras if datamanager.eval_cameras is not None else datamanager.train_cameras
     h, w = cams.height, cams.width
     t0 = time.perf_counter()
-    outputs = render_camera(model, params, rb, image_idx, chunk_fn, chunk_size)
+    outputs = render_camera(model, params, rb, image_idx, chunk_fn, chunk_size, graphed=graphed)
     dt = time.perf_counter() - t0
     pred = outputs["rgb"].reshape(h, w, 3)
     gt = np.asarray(batch["image"]).reshape(h, w, 3)
@@ -250,7 +357,7 @@ def eval_image_metrics(
     return {
         "psnr": M.psnr(pred, gt),
         "ssim": M.ssim_image(pred, gt),
-        "lpips": M.lpips_image(pred, gt, model.device),
+        "lpips": M.lpips_image(pred, gt, model.device, graphed),
         "mse": M.mse(pred, gt),
         "num_rays_per_sec": h * w / dt,
         "fps": 1.0 / dt,
@@ -265,18 +372,20 @@ def average_eval_metrics(
     num_images: Optional[int] = None,
     chunk_size: int = 4096,
     fit_latents_first: bool = True,
+    graphed: Optional[bool] = None,
 ) -> Dict[str, float]:
     """Mean of :func:`eval_image_metrics` over the first ``num_images``
     eval images (default: all), after fitting the eval latents; the
     throughput fields leave out image 0, which pays the first-call costs,
-    when there is more than one image."""
+    when there is more than one image.  ``graphed`` as
+    :func:`make_render_chunk_fn`'s, for the fit, the renders and LPIPS."""
     if fit_latents_first:
-        params, _ = fit_eval_latents(model, params, datamanager)
-    chunk_fn, chunk_size = make_render_chunk_fn(model, chunk_size)
+        params, _ = fit_eval_latents(model, params, datamanager, host_loop=graphed is False)
+    chunk_fn, chunk_size = make_render_chunk_fn(model, chunk_size, graphed)
     n = num_images or max(datamanager.num_eval, 1)
     per_image = []
     for i in range(n):
-        m = eval_image_metrics(model, params, datamanager, i, chunk_fn, chunk_size)
+        m = eval_image_metrics(model, params, datamanager, i, chunk_fn, chunk_size, graphed=graphed)
         m.pop("outputs")
         per_image.append(m)
     out = {k: float(np.mean([m[k] for m in per_image])) for k in per_image[0] if per_image[0][k] is not None}
@@ -299,6 +408,7 @@ def run_nerfosr_protocol(
     least_squares_scale: bool = False,
     optimise_compare_eval_scale: bool = False,
     gt_envmaps: Optional[np.ndarray] = None,  # [S, H, W, 3] linear HDR, one a session → envmap mode
+    graphed: Optional[bool] = None,
 ) -> Dict[str, Any]:
     """The NeRF-OSR relighting benchmark on ``protocol``
     (:class:`~neusky_torch.data.nerfosr_eval.NeRFOSREvalProtocol`):
@@ -316,15 +426,18 @@ def run_nerfosr_protocol(
     → ``per_image``, ``mean`` (PSNR, SSIM, LPIPS, MSE and rays/s, which
     leaves out image 0 when there are more), ``fit_loss_first``,
     ``fit_loss_last``, ``num_sessions``, ``lpips_flavour`` and, in envmap
-    mode, ``envmap_fit_psnr`` and ``session_rotation_rad``."""
+    mode, ``envmap_fit_psnr`` and ``session_rotation_rad``.  ``graphed``
+    as :func:`make_render_chunk_fn`'s, for the fits, the renders and
+    LPIPS."""
     dev = model.device
     session_rot = None
     envmap_info = None
     if gt_envmaps is not None:
         gt_latents, envmap_psnr = fit_latents_to_envmaps(
-            model.illumination, params["illumination_decoder"], np.asarray(gt_envmaps), steps=fit_steps)
+            model.illumination, params["illumination_decoder"], np.asarray(gt_envmaps), steps=fit_steps,
+            graphed=graphed)
         params, gamma, fit_losses = fit_eval_rotation(model, params, protocol, torch.from_numpy(gt_latents).to(dev),
-                                                      steps=fit_steps)
+                                                      steps=fit_steps, graphed=graphed)
         envmap_info = {"envmap_fit_psnr": [float(x) for x in envmap_psnr],
                        "session_rotation_rad": [float(g) for g in gamma]}
         # the fitted rotation is applied at render time, as in JAX: the
@@ -336,9 +449,9 @@ def run_nerfosr_protocol(
         fit_pool = "compare" if optimise_compare_eval_scale else "optimise"
         params, fit_losses = fit_eval_latents(model, params, None, steps=fit_steps,
                                               batch_fn=lambda: protocol.lighting_eval_batch(fit_pool),
-                                              scale_only=optimise_compare_eval_scale)
+                                              scale_only=optimise_compare_eval_scale, host_loop=graphed is False)
 
-    chunk_fn, chunk_size = make_render_chunk_fn(model, chunk_size)
+    chunk_fn, chunk_size = make_render_chunk_fn(model, chunk_size, graphed)
     h, w = protocol.cameras.height, protocol.cameras.width
     per_image = []
     for i in range(len(protocol.compare_indices)):
@@ -357,7 +470,7 @@ def run_nerfosr_protocol(
             "session": int(slot),
             "psnr": M.psnr(pred, gt),
             "ssim": M.ssim_image(pred, gt),
-            "lpips": M.lpips_image(pred, gt, dev),
+            "lpips": M.lpips_image(pred, gt, dev, graphed),
             "mse": M.mse(pred, gt),
             "num_rays_per_sec": h * w / dt,
         })
@@ -471,6 +584,7 @@ def run_nerfosr_eval(args, overrides):
         least_squares_scale=bool(getattr(pipe_cfg, "least_squares_global_scale", False)),
         optimise_compare_eval_scale=model_config.optimise_compare_eval_scale,
         gt_envmaps=gt_envmaps,
+        graphed=cli_graphed(args),
     )
     # --output is shared with ``render``, whose default is render.npy
     raw_out = getattr(args, "output", "")
@@ -487,6 +601,12 @@ def run_nerfosr_eval(args, overrides):
 
 # ---------------------------------------------------------------------------
 # CLI glue
+
+
+def cli_graphed(args) -> Optional[bool]:
+    """``graphed`` of a command: False with ``--eager``, else None (captured
+    on the card)."""
+    return False if getattr(args, "eager", False) else None
 
 
 def _load_run(args, overrides):
@@ -518,7 +638,7 @@ def run_eval(args, overrides):
     """``cli eval``: fit the eval latents (when there is an eval split),
     render and score every eval image, print the mean metrics as JSON."""
     model, params, dm = _load_run(args, overrides)
-    metrics = average_eval_metrics(model, params, dm, fit_latents_first=dm.num_eval > 0)
+    metrics = average_eval_metrics(model, params, dm, fit_latents_first=dm.num_eval > 0, graphed=cli_graphed(args))
     print(json.dumps(metrics), flush=True)
     return metrics
 
@@ -528,7 +648,7 @@ def run_render(args, overrides):
     slot's sky and save its ``rgb`` [H, W, 3] to ``--output`` (``.npy``)."""
     model, params, dm = _load_run(args, overrides)
     rb, _ = dm.eval_image_bundle(args.image_idx)
-    out = render_camera(model, params, rb, args.image_idx)
+    out = render_camera(model, params, rb, args.image_idx, graphed=cli_graphed(args))
     cams = dm.eval_cameras if dm.eval_cameras is not None else dm.train_cameras
     img = out["rgb"].reshape(cams.height, cams.width, 3)
     np.save(args.output, img)

@@ -69,12 +69,13 @@ def image_metrics_and_panels(
     width: int,
     latent_slot: int = 0,
     gt_layers: Optional[Dict[str, np.ndarray]] = None,
+    graphed: Optional[bool] = None,
 ) -> Tuple[Dict[str, float], Dict[str, np.ndarray]]:
     """(metrics, panels) of one rendered image: ``outputs`` are the flat
     [H·W, C] maps of :func:`~neusky_torch.engine.eval_loop.render_camera`,
     ``batch`` the ground truth of ``DataManager.eval_image_bundle``;
     ``gt_layers`` (``albedo``, ``normal``, ``depth``) adds the GT-layer
-    metrics."""
+    metrics; ``graphed`` as LPIPS's (``engine/lpips.py``)."""
     H, W = height, width
     rgb = outputs["rgb"].reshape(H, W, 3)
     gt = np.asarray(batch["image"]).reshape(H, W, 3)
@@ -99,7 +100,7 @@ def image_metrics_and_panels(
         "psnr": M.psnr(rgb, gt),
         "ssim": M.ssim_image(rgb, gt),
         "mse": M.mse(rgb, gt),
-        "lpips": M.lpips_image(rgb, gt, model.device),
+        "lpips": M.lpips_image(rgb, gt, model.device, graphed),
     }
     images["reni_envmap"] = render_reni_envmap(model, params, latent_slot)["panel"]
 

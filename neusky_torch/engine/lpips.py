@@ -10,7 +10,9 @@ of this repo, not with published (pretrained) LPIPS.  Nothing is fetched.
 
 Distance: the five classic taps (relu1_2, relu2_2, relu3_3, relu4_3,
 relu5_3), each unit-normalised over channels; the mean squared difference
-of each (uniform linear weights), summed over the taps.
+of each (uniform linear weights), summed over the taps.  On the card it
+is one CUDA graph replay a call, one graph per (device, image shape), as
+JAX jits it (``neusky_tpu/engine/lpips.py:140``).
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from neusky_torch.device import resolve_device
+from neusky_torch.device import device_constant, resolve_device
+from neusky_torch.parallel.graphs import CapturedStep, use_graph
 
 # VGG16 conv plan: (out_channels, tap after its relu) per conv; "M" = maxpool
 _VGG16 = [
@@ -83,8 +86,8 @@ def random_vgg(seed: int = 0) -> List[Tuple[np.ndarray, np.ndarray]]:
 
 def _features(x: torch.Tensor, convs) -> List[torch.Tensor]:
     """x [N, 3, H, W] in [0, 1] → the tap activations."""
-    mean = torch.as_tensor(_IMAGENET_MEAN, device=x.device).reshape(1, 3, 1, 1)
-    std = torch.as_tensor(_IMAGENET_STD, device=x.device).reshape(1, 3, 1, 1)
+    mean = device_constant(tuple(_IMAGENET_MEAN.tolist()), torch.float32, x.device).reshape(1, 3, 1, 1)
+    std = device_constant(tuple(_IMAGENET_STD.tolist()), torch.float32, x.device).reshape(1, 3, 1, 1)
     x = (x - mean) / std
     taps = []
     ci = 0
@@ -114,19 +117,41 @@ def flavour() -> Optional[str]:
     return _cache.get("flavour")
 
 
-@torch.inference_mode()
-def lpips(pred: np.ndarray, target: np.ndarray, device="cuda") -> Tuple[float, str]:
-    """LPIPS of two [H, W, 3] images in [0, 1] on ``device`` → (value,
-    flavour); report the flavour beside the value."""
-    dev = resolve_device(device)
-    convs = _weights(dev)
-    a = torch.as_tensor(np.asarray(pred, np.float32), device=dev).permute(2, 0, 1)[None]
-    b = torch.as_tensor(np.asarray(target, np.float32), device=dev).permute(2, 0, 1)[None]
-    total = torch.zeros((), device=dev)
+def distance(a: torch.Tensor, b: torch.Tensor, convs) -> torch.Tensor:
+    """The LPIPS distance of two [1, 3, H, W] images in [0, 1] → a 0-d
+    tensor; builds no tensor from host data, so it can be captured."""
+    total = torch.zeros((), device=a.device)
     # full float32 convolutions whatever the caller's TF32 setting, as JAX
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+    with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         for xa, xb in zip(_features(a, convs), _features(b, convs)):
             na = xa / torch.sqrt(torch.sum(xa**2, dim=1, keepdim=True) + 1e-10)
             nb = xb / torch.sqrt(torch.sum(xb**2, dim=1, keepdim=True) + 1e-10)
             total = total + torch.mean((na - nb) ** 2)
+    return total
+
+
+def distance_fn(device: torch.device, shape, graphed: Optional[bool] = None):
+    """``fn(a, b)`` → :func:`distance` on ``device`` for images of ``shape``
+    ([1, 3, H, W]): on the card (``graphed`` None or True) a CUDA graph
+    replay, one graph per (device, shape) kept for the process; eagerly
+    with ``graphed=False``, and on the CPU (where True raises)."""
+    convs = _weights(device)
+    if not use_graph(graphed, device):
+        return lambda a, b: distance(a, b, convs)
+    key = ("graph", str(device), tuple(shape))
+    if key not in _cache:
+        captured = CapturedStep(lambda _, __, a, b: distance(a, b, convs))
+        _cache[key] = lambda a, b: captured(None, None, a, b)
+        _cache[key].captured = captured
+    return _cache[key]
+
+
+def lpips(pred: np.ndarray, target: np.ndarray, device="cuda", graphed: Optional[bool] = None) -> Tuple[float, str]:
+    """LPIPS of two [H, W, 3] images in [0, 1] on ``device`` → (value,
+    flavour); report the flavour beside the value.  ``graphed`` as
+    :func:`distance_fn`'s."""
+    dev = resolve_device(device)
+    a = torch.as_tensor(np.asarray(pred, np.float32), device=dev).permute(2, 0, 1)[None]
+    b = torch.as_tensor(np.asarray(target, np.float32), device=dev).permute(2, 0, 1)[None]
+    total = distance_fn(dev, a.shape, graphed)(a, b)
     return float(total), _cache["flavour"]

@@ -62,10 +62,10 @@ def ssim_image(pred: np.ndarray, target: np.ndarray, data_range: float = 1.0) ->
     return float(np.mean(vals))
 
 
-def lpips_image(pred: np.ndarray, target: np.ndarray, device="cuda") -> float:
+def lpips_image(pred: np.ndarray, target: np.ndarray, device="cuda", graphed: Optional[bool] = None) -> float:
     """LPIPS (VGG16 taps) of two [H, W, 3] images in [0, 1], computed on
-    ``device``."""
-    return _lpips.lpips(pred, target, device)[0]
+    ``device`` (``graphed`` as :func:`~neusky_torch.engine.lpips.lpips`'s)."""
+    return _lpips.lpips(pred, target, device, graphed)[0]
 
 
 def lpips_flavour() -> Optional[str]:

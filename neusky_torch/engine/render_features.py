@@ -97,6 +97,9 @@ class AnimationConfig:
     chunk_size: int = 4096
     start_frame: int = 0
     end_frame: Optional[int] = None
+    graphed: Optional[bool] = None
+    """As ``make_render_chunk_fn``'s: the rotating chunk captured on the card
+    (JAX's jitted rotating chunk, ``neusky_tpu/engine/render_features.py:168``)."""
 
 
 def render_illumination_animation(
@@ -115,7 +118,7 @@ def render_illumination_animation(
     out_dir = Path(config.output_dir) / "render_frames"
     out_dir.mkdir(parents=True, exist_ok=True)
     end = config.end_frame or config.num_frames
-    chunk_fn, chunk_size = make_render_chunk_fn(model, config.chunk_size)
+    chunk_fn, chunk_size = make_render_chunk_fn(model, config.chunk_size, config.graphed)
     frames = []
     for i in range(config.start_frame, end):
         frame_path = out_dir / f"frame_{i}.npy"

@@ -15,6 +15,12 @@ and pixel indices) and, when variational, ``eps`` ([P, latent_dim, 3]
 normals); a fit's are the [steps, P] pixel indices of each chunk of skies.
 Whatever is not given is drawn from a ``torch.Generator`` seeded from the
 config.
+
+On the card a trainer step and a fit step each run as one CUDA graph
+replay (``neusky_torch/parallel/graphs.py``), as JAX scans them in one jit
+(``neusky_tpu/engine/reni_trainer.py:174``, ``:274``): the draws are made
+before the replays, and the host reads the losses only at log records and
+a fit's PSNRs once at its end.  ``graphed=False`` runs them eagerly.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch
 from neusky_torch.device import resolve_device
 from neusky_torch.engine.optimizers import GroupedAdam, OptimizerGroupConfig
 from neusky_torch.fields.reni import RENIField, RENIFieldConfig
+from neusky_torch.parallel.graphs import CapturedStep, use_graph
 from neusky_torch.sampling.illumination import EquirectangularSampler
 from neusky_torch.tree import tree_leaves, tree_map
 
@@ -66,9 +73,11 @@ class RENITrainer:
     """Autodecoder training over ``envmaps`` [B, H, W, 3] (linear HDR, H =
     W / 2).  Entry point: runs on ``device`` (default CUDA; raises without
     a card unless ``device="cpu"``).  The corpus is copied to the device
-    once."""
+    once.  ``graphed``: None captures the step as a CUDA graph on the card,
+    False runs it eagerly, True raises on the CPU."""
 
-    def __init__(self, config: RENITrainerConfig, envmaps: np.ndarray, device="cuda"):
+    def __init__(self, config: RENITrainerConfig, envmaps: np.ndarray, device="cuda",
+                 graphed: Optional[bool] = None):
         self.config = config
         self.device = resolve_device(device)
         b, h, w, _ = envmaps.shape
@@ -92,6 +101,9 @@ class RENITrainer:
         )
         self.step = 0
         self.history: List[dict] = []
+        self._step_fn = lambda params, _, draws: self._train_step(draws)
+        if use_graph(graphed, self.device):
+            self._step_fn = CapturedStep(self._step_fn, self.optimizer)
 
     def draw(self) -> Dict[str, torch.Tensor]:
         """One step's draws from the trainer's generator."""
@@ -125,6 +137,11 @@ class RENITrainer:
         self.optimizer.step()
         return {"recon": aux["recon"].detach(), "kl": aux["kl"].detach(), "total": total.detach()}
 
+    def train_step(self, draws) -> Dict[str, torch.Tensor]:
+        """One update from one step's draws (:meth:`draw`) → its detached
+        ``recon``, ``kl`` and ``total``: a graph replay on the card."""
+        return self._step_fn(self.params, None, draws)
+
     def run(self, num_steps: Optional[int] = None, log_every: int = 500, log_fn=None,
             draws: Optional[Sequence[dict]] = None) -> List[dict]:
         """Train ``num_steps`` (default ``config.num_steps``) rounded up to
@@ -132,7 +149,8 @@ class RENITrainer:
         record (the step, and the last step's ``recon``, ``kl`` and
         ``total``) is kept every ``log_every // steps_per_call`` chunks and
         at the end.  ``draws``: one dict per step of this run (as
-        :meth:`draw` makes), else drawn."""
+        :meth:`draw` makes), else a chunk's draws are made before its
+        steps, in the order a step-by-step loop makes them."""
         requested = num_steps or self.config.num_steps
         per_call = self.config.steps_per_call
         if requested % per_call:
@@ -141,8 +159,10 @@ class RENITrainer:
                 log_fn({"note": f"rounded to {requested} steps (chunks of {per_call})"})
         start, target = self.step, self.step + requested
         while self.step < target:
-            for i in range(per_call):
-                aux = self._train_step(draws[self.step - start + i] if draws is not None else self.draw())
+            chunk = (draws[self.step - start:self.step - start + per_call] if draws is not None
+                     else [self.draw() for _ in range(per_call)])
+            for d in chunk:
+                aux = self.train_step(d)
             self.step += per_call
             if (self.step // per_call) % max(1, log_every // per_call) == 0 or self.step >= target:
                 rec = {"step": self.step, **{k: float(v) for k, v in aux.items()}}
@@ -163,12 +183,13 @@ class RENITrainer:
         return psnr_normalised(float(torch.mean((out["rgb"] - gt) ** 2)))
 
     def fit_heldout_latents(self, envmaps: np.ndarray, steps: int = 400, lr: float = 1e-1,
-                            pixels_per_step: int = 2048, seed: int = 1, sky_chunk: int = 4, pixel_draws=None):
+                            pixels_per_step: int = 2048, seed: int = 1, sky_chunk: int = 4, pixel_draws=None,
+                            graphed: Optional[bool] = None):
         """Latents fitted to held-out skies with this decoder frozen → (latents
         [B, D, 3], PSNR [B]): the prior's generalisation gate."""
         return fit_latents_to_envmaps(self.field, self.params["decoder"], envmaps, steps=steps, lr=lr,
                                       pixels_per_step=pixels_per_step, seed=seed, sky_chunk=sky_chunk,
-                                      pixel_draws=pixel_draws)
+                                      pixel_draws=pixel_draws, graphed=graphed)
 
     @torch.no_grad()
     def decode_envmap(self, latent, width: int = 128) -> np.ndarray:
@@ -177,6 +198,39 @@ class RENITrainer:
         z = torch.as_tensor(latent, dtype=torch.float32).to(self.device)
         out = self.field.apply(self.params["decoder"], sampler(self.device), z)
         return self.field.unnormalise(out["rgb"]).cpu().numpy().reshape(sampler.height, width, 3)
+
+
+def envmap_fit_loss(field: RENIField, decoder, dirs: torch.Tensor, z: torch.Tensor, targets: torch.Tensor,
+                    pix: torch.Tensor) -> torch.Tensor:
+    """The envmap fit's loss: the C skies' latents ``z`` [C, D, 3] decoded
+    at the directions ``dirs[pix]`` (one batched decode of C·P samples,
+    sky-major) against ``targets`` [C, H·W, 3] (normalised) at ``pix``."""
+    c, p = z.shape[0], pix.shape[0]
+    d = dirs[pix].repeat(c, 1)  # [C·P, 3], sky-major
+    lat = z[:, None].expand(c, p, *z.shape[1:]).reshape(c * p, *z.shape[1:])
+    pred = field.apply(decoder, d, lat)["rgb"].reshape(c, p, 3)
+    return torch.mean((pred - targets[:, pix]) ** 2)
+
+
+def make_envmap_fit_step(field: RENIField, decoder, dirs: torch.Tensor, z: torch.Tensor, targets: torch.Tensor,
+                         lr: float, graphed: Optional[bool] = None):
+    """(step_fn, optimizer): ``step_fn({"z": z}, None, pix)`` is one Adam
+    update (lr ``lr``, optax's ε; capturable on the card) of the latents
+    ``z`` on :func:`envmap_fit_loss` → the loss, detached; a CUDA graph
+    replay on the card (``graphed`` None or True), reading ``z`` and
+    ``targets`` where they lie."""
+    opt = torch.optim.Adam([z], lr=lr, betas=(0.9, 0.999), eps=OPTAX_ADAM_EPS, capturable=z.device.type == "cuda")
+
+    def step_fn(_, __, pix):
+        loss = envmap_fit_loss(field, decoder, dirs, z, targets, pix)
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    if use_graph(graphed, z.device):
+        return CapturedStep(step_fn, opt), opt
+    return step_fn, opt
 
 
 def fit_latents_to_envmaps(
@@ -189,6 +243,7 @@ def fit_latents_to_envmaps(
     seed: int = 1,
     sky_chunk: int = 4,
     pixel_draws: Optional[Sequence] = None,
+    graphed: Optional[bool] = None,
 ):
     """Fit one latent per sky of ``envmaps`` [B, H, W, 3] (linear HDR, H =
     W / 2) with the decoder frozen, on the decoder's device → (latents
@@ -201,7 +256,12 @@ def fit_latents_to_envmaps(
     only its own pixels, so chunking does not change the fit; it bounds the
     [C·P, D, hidden] attention temporaries.  ``pixel_draws``: one [steps,
     P] index array per chunk; else chunk ``lo`` draws from a generator
-    seeded ``seed + lo``."""
+    seeded ``seed + lo``.
+
+    One latent buffer [C, D, 3] and one Adam state (optax's ε, capturable
+    on the card) serve every chunk, zeroed in place before each, so on the
+    card (``graphed`` None or True) one CUDA graph of a step serves the
+    call; the latents and the PSNRs are read once at the end."""
     b, h, w, _ = envmaps.shape
     sampler = EquirectangularSampler(width=w)
     if sampler.height != h:
@@ -213,32 +273,32 @@ def fit_latents_to_envmaps(
     n_pix, p = h * w, pixels_per_step
     c = min(sky_chunk, b)
     flat = np.asarray(envmaps, np.float32).reshape(b, n_pix, 3)
-    zs, psnrs = [], []
+    z = torch.zeros((c, latent_dim, 3), device=dev, requires_grad=True)
+    gt_all = torch.empty((c, n_pix, 3), device=dev)
+    step_fn, opt = make_envmap_fit_step(field, decoder, dirs, z, gt_all, lr, graphed)
+    zs, mses = [], []
     for chunk_i, lo in enumerate(range(0, b, c)):
         chunk = flat[lo:lo + c]
         keep = chunk.shape[0]
         if keep < c:
             chunk = np.concatenate([chunk, chunk[-1:].repeat(c - keep, 0)], 0)
-        gt_all = field.normalise(torch.as_tensor(chunk, device=dev))  # [C, H·W, 3]
-        z = torch.zeros((c, latent_dim, 3), device=dev, requires_grad=True)
-        opt = torch.optim.Adam([z], lr=lr, betas=(0.9, 0.999), eps=OPTAX_ADAM_EPS)
+        with torch.no_grad():
+            gt_all.copy_(field.normalise(torch.as_tensor(chunk, device=dev)))  # [C, H·W, 3]
+            z.zero_()
+            for state in opt.state.values():  # a fresh Adam state, in place
+                for t in state.values():
+                    t.zero_()
         if pixel_draws is not None:
             pix_all = torch.as_tensor(np.asarray(pixel_draws[chunk_i]), device=dev).long()
         else:
             g = torch.Generator(device=dev).manual_seed(seed + lo)
             pix_all = torch.randint(0, n_pix, (steps, p), generator=g, device=dev)
         for s in range(steps):
-            pix = pix_all[s]
-            d = dirs[pix].repeat(c, 1)  # [C·P, 3], sky-major
-            lat = z[:, None].expand(c, p, latent_dim, 3).reshape(c * p, latent_dim, 3)
-            pred = field.apply(decoder, d, lat)["rgb"].reshape(c, p, 3)
-            loss = torch.mean((pred - gt_all[:, pix]) ** 2)
-            opt.zero_grad()
-            loss.backward()
-            opt.step()
+            step_fn({"z": z}, None, pix_all[s])
         with torch.no_grad():
             for i in range(keep):
                 pred = field.apply(decoder, dirs, z[i])["rgb"]
-                psnrs.append(psnr_normalised(float(torch.mean((pred - gt_all[i]) ** 2))))
-        zs.append(z.detach()[:keep].cpu().numpy())
-    return np.concatenate(zs, 0), np.asarray(psnrs, np.float32)
+                mses.append(torch.mean((pred - gt_all[i]) ** 2))
+        zs.append(z.detach()[:keep].clone())
+    psnrs = [psnr_normalised(m) for m in torch.stack(mses).cpu().tolist()]
+    return torch.cat(zs, 0).cpu().numpy(), np.asarray(psnrs, np.float32)

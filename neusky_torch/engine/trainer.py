@@ -86,8 +86,9 @@ class Trainer:
     ):
         """``graphed`` as the step factories' (``parallel/mesh.py``): None
         captures the training step as a CUDA graph on the card without a
-        mesh (and its eval passes' latent fits the same way), False runs it
-        eagerly; True raises on the CPU or with a mesh."""
+        mesh (and its eval passes' latent fits, renders and LPIPS the same
+        way, with or without a mesh), False runs them eagerly; True raises
+        on the CPU or with a mesh."""
         self.device = resolve_device(device)
         if model.device != self.device or datamanager.device != self.device:
             raise ValueError("model, datamanager and trainer must share one device")
@@ -108,6 +109,7 @@ class Trainer:
         self.optimizer = opt_mod.GroupedAdam(self.params, groups)
         make_step = make_train_step_split if config.use_split_step else make_train_step
         self.train_step = make_step(model, pipeline_config, self.optimizer, mesh, graphed)
+        self.graphed = graphed
         self.step = 0
         self.history: list = []
         self.writer = None
@@ -164,8 +166,8 @@ class Trainer:
         image_idx = (self.step // self.config.steps_per_eval_image - 1) % max(self.datamanager.num_eval, 1)
         self.model.set_mesh(None)
         try:
-            params, _ = fit_eval_latents(self.model, self.params, self.datamanager)
-            m = eval_image_metrics(self.model, params, self.datamanager, image_idx)
+            params, _ = fit_eval_latents(self.model, self.params, self.datamanager, host_loop=self.graphed is False)
+            m = eval_image_metrics(self.model, params, self.datamanager, image_idx, graphed=self.graphed)
             outputs = m.pop("outputs")
             record = {f"eval_{k}": v for k, v in m.items() if v is not None}
             self.history.append({"step": self.step, **record})
@@ -174,7 +176,7 @@ class Trainer:
                 cams = self.datamanager.eval_cameras
                 _, batch = self.datamanager.eval_image_bundle(image_idx)
                 _, panels = image_metrics_and_panels(self.model, params, outputs, batch, cams.height, cams.width,
-                                                     latent_slot=image_idx)
+                                                     latent_slot=image_idx, graphed=self.graphed)
                 for name, img in panels.items():
                     self.writer.write_image(self.step, name, img)
         finally:

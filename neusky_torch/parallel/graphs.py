@@ -1,27 +1,41 @@
-"""Captured steps: a training or eval-latent step run as one CUDA graph
-replay a call, the port's counterpart of JAX's one jitted executable a step
-(``jax.jit(step_fn, donate_argnums=(0, 1))``, ``neusky_tpu/parallel/mesh.py:80-115``).
+"""Captured functions: a training step, a fit step or a forward run as one
+CUDA graph replay a call, the port's counterpart of JAX's one jitted
+executable a call (``jax.jit(step_fn, donate_argnums=(0, 1))``,
+``neusky_tpu/parallel/mesh.py:80-115``; the trainers', fits', render
+chunk's and LPIPS's ``jax.jit`` in ``neusky_tpu/engine/``).
 
-:class:`CapturedStep` wraps ``fn(params, step, *inputs)``: the eager step
-with its random draws passed in (``models/pipeline.py::draw_step``), so
-that it reads nothing from the host and draws nothing.  A call:
+:class:`CapturedStep` wraps ``fn(params, step, *inputs)``: the eager
+function with its random draws passed in (``models/pipeline.py::draw_step``
+and the trainers' own ``draw_step``), so that it reads nothing from the
+host and draws nothing.  ``step`` is a float, a 0-d tensor or None (``fn``
+then gets None).  A call:
 
-1. checks that ``params`` are the tensors of the first call (the graph
-   reads and updates them in place, as JAX donates them) and that
-   ``inputs`` have the first call's structure, shapes, dtypes and devices,
-   and raises otherwise: it never runs a changed call eagerly;
-2. copies the inputs into static buffers and the step (a float or a 0-d
-   tensor) into a static 0-d float32 tensor;
-3. the first call runs ``fn`` eagerly on a side stream, a real step (it
-   creates the Adam state and cuBLAS's handles, and loads K1); the next
-   call captures ``fn`` into a ``torch.cuda.CUDAGraph`` (its wall time is
-   ``capture_s``) and every call from then on replays it;
-4. returns copies of the graph's static outputs: nothing waits for the
+1. checks the params: with an ``optimizer`` (a step that updates them in
+   place, as JAX donates them) they must be the tensors of the first call,
+   and other params raise; without one (a forward) the graph reads its own
+   copy of the first call's params, into which a call copies the params it
+   is given unless they are the last call's tensors and nothing has written
+   them since, so one graph serves every call of a shared function (the
+   render of every image, whatever tree its params come in) and copies
+   once per params tree, not once a call;
+2. checks that ``inputs`` (and a forward's params) have the first call's
+   structure, shapes, dtypes and devices, and raises otherwise: it never
+   runs a changed call eagerly;
+3. copies the inputs into static buffers and the step into a static 0-d
+   float32 tensor;
+4. the first call runs ``fn`` eagerly on a side stream, a real call (it
+   creates the Adam state and cuBLAS's and cuDNN's handles, fills the
+   per-device constant caches and loads K1); the next call captures ``fn``
+   into a ``torch.cuda.CUDAGraph`` with a private memory pool of its own
+   (its wall time is ``capture_s``) and every call from then on replays it;
+5. returns copies of the graph's static outputs: nothing waits for the
    card unless the caller reads them.
 
-A capture that fails raises.  The optimizer's ``generation`` moves when
-its state is loaded anew (``GroupedAdam.load_state_dict``): the next call
-then warms up and captures again over the new state tensors.
+A capture collects garbage first, and a capture that fails raises.  An
+optimizer's ``generation`` (``GroupedAdam`` moves it when its state is
+loaded anew; an optimizer without one never moves) makes the next call
+warm up and capture again over the new state tensors.  Calls are
+serialised by a lock (the viewer renders from its server's threads).
 
 K1's launch counter (``ops/hashgrid_cuda.py``) counts Python calls of its
 wrapper.  A capture records K1's launches without running them, so the
@@ -32,13 +46,21 @@ launches that ran.
 from __future__ import annotations
 
 import dataclasses
+import gc
+import threading
 import time
+import weakref
 from typing import Any, Callable, List, Optional
 
 import torch
 
 from neusky_torch.ops import hashgrid_cuda
 from neusky_torch.tree import tree_leaves
+
+# calls of the steps that update their params in place: a replay writes them
+# without moving their version counters, so a forward reads this count to
+# tell that params it already holds were written
+writes = 0
 
 
 def flatten(tree, leaves: List[torch.Tensor]):
@@ -74,22 +96,44 @@ def unflatten(spec, leaves) -> Any:
     return kind(**{n: unflatten(s, leaves) for n, s in zip(spec[1], spec[2])})
 
 
+def use_graph(graphed: Optional[bool], device: torch.device, eager_reason: Optional[str] = None) -> bool:
+    """Whether a factory given ``graphed`` captures on ``device``: None
+    captures on a CUDA device (unless ``eager_reason`` says why the call
+    runs eagerly there: a mesh), False runs eagerly, True captures and
+    raises on the CPU or with an ``eager_reason``."""
+    if graphed is None:
+        return device.type == "cuda" and eager_reason is None
+    if graphed and device.type != "cuda":
+        raise ValueError(f"graphed=True needs a CUDA device, not {device}")
+    if graphed and eager_reason is not None:
+        raise ValueError(f"graphed=True {eager_reason}")
+    return bool(graphed)
+
+
 class CapturedStep:
     """``fn(params, step, *inputs)`` run as one CUDA graph replay a call;
-    see the module docstring.  ``optimizer`` is the ``GroupedAdam`` that
-    ``fn`` steps."""
+    see the module docstring.  ``optimizer``: what ``fn`` steps (a
+    ``GroupedAdam`` or a capturable ``torch.optim.Adam``), or None for a
+    forward."""
 
-    def __init__(self, fn: Callable, optimizer):
+    def __init__(self, fn: Callable, optimizer=None):
         self.fn = fn
         self.optimizer = optimizer
         self.capture_s: Optional[float] = None
         self.replays = 0
+        self._lock = threading.Lock()
         self._params: Optional[List[torch.Tensor]] = None
+        self._n_params = 0
+        self._seen: Optional[tuple] = None
         self._spec = None
         self._static: List[torch.Tensor] = []
+        self._static_params = None
         self._static_inputs: tuple = ()
         self._step: Optional[torch.Tensor] = None
         self._reset()
+
+    def _generation_now(self) -> int:
+        return getattr(self.optimizer, "generation", 0)
 
     def _reset(self) -> None:
         """Drop the graph: the next calls warm up and capture again."""
@@ -98,69 +142,111 @@ class CapturedStep:
         self._out: List[torch.Tensor] = []
         self._launches = {}
         self._warm = False
-        self._generation = self.optimizer.generation
+        self._generation = self._generation_now()
 
-    def _check(self, params, inputs) -> List[torch.Tensor]:
-        leaves = tree_leaves(params)
-        if self._params is None:
-            self._params = leaves
-        elif len(leaves) != len(self._params) or any(a is not b for a, b in zip(leaves, self._params)):
-            raise ValueError("a captured step takes the params it was first called with (it updates those "
-                             "tensors in place); build a new step for other params")
+    def _check(self, params, step, inputs) -> List[torch.Tensor]:
         flat: List[torch.Tensor] = []
-        spec = flatten(inputs, flat)
+        if self.optimizer is None:  # a forward: its params are inputs, the first of them
+            p_spec = flatten(params, flat)
+            self._n_params = len(flat)
+            # flatten((params, step is None, inputs), flat), the params' count taken between
+            spec = (tuple, (p_spec, flatten(step is None, flat), flatten(inputs, flat)))
+            leaves: List[torch.Tensor] = []
+        else:
+            spec = flatten((step is None, inputs), flat)
+            leaves = tree_leaves(params)
+            if self._params is None:
+                self._params = leaves
+            elif len(leaves) != len(self._params) or any(a is not b for a, b in zip(leaves, self._params)):
+                raise ValueError("a captured step takes the params it was first called with (it updates those "
+                                 "tensors in place); build a new step for other params")
         if self._spec is None:
-            if any(t.device.type != "cuda" for t in flat + leaves):
+            if not flat + leaves or any(t.device.type != "cuda" for t in flat + leaves):
                 raise ValueError("a captured step takes CUDA tensors only")
             self._spec = spec
             self._static = [t.detach().clone() for t in flat]
-            self._static_inputs = unflatten(spec, iter(self._static))
-            self._step = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+            static = unflatten(spec, iter(self._static))
+            if self.optimizer is None:
+                self._static_params, _, self._static_inputs = static
+            else:
+                self._static_params, self._static_inputs = params, static[1]
+            if step is not None:
+                self._step = torch.zeros((), dtype=torch.float32, device=(flat + leaves)[0].device)
         elif spec != self._spec:
             raise ValueError("a captured step's inputs changed structure, shape, dtype, device or a constant "
                              f"since its first call:\n  now   {spec}\n  first {self._spec}")
         return flat
 
     def __call__(self, params, step, *inputs):
-        flat = self._check(params, inputs)
-        if self.optimizer.generation != self._generation:
+        with self._lock:
+            return self._call(params, step, inputs)
+
+    def _call(self, params, step, inputs):
+        global writes
+        flat = self._check(params, step, inputs)
+        if self._generation_now() != self._generation:
             self._reset()
+        start = self._n_params if self._params_seen(flat[:self._n_params]) else 0
         with torch.no_grad():
-            for static, t in zip(self._static, flat):
+            for static, t in zip(self._static[start:], flat[start:]):
                 if static is not t:
                     static.copy_(t)
             if isinstance(step, torch.Tensor):
                 self._step.copy_(step)
-            else:
+            elif step is not None:
                 self._step.fill_(float(step))
+        if self.optimizer is not None:
+            writes += 1
         if not self._warm:
             self._warm = True
-            return self._run_on_side_stream(params)
+            return self._run_on_side_stream()
         if self.graph is None:
-            self._capture(params)
+            self._capture()
         self.graph.replay()
         self.replays += 1
         for name, n in self._launches.items():
             hashgrid_cuda.launches[name] += n
         return unflatten(self._out_spec, (t.clone() for t in self._out))
 
-    def _run_on_side_stream(self, params):
-        main = torch.cuda.current_stream(self._step.device)
-        side = torch.cuda.Stream(self._step.device)
+    def _params_seen(self, leaves: List[torch.Tensor]) -> bool:
+        """Whether a forward's param ``leaves`` are the tensors of its last
+        call, unwritten since (no version counter and no :data:`writes`
+        moved), so that the graph's copy of them is current.  Inference
+        tensors keep no version counter and are always copied."""
+        if not leaves or any(t.is_inference() for t in leaves):
+            self._seen = None
+            return False
+        stamp = (writes, tuple(t._version for t in leaves))
+        seen = (self._seen is not None and self._seen[0] == stamp and len(self._seen[1]) == len(leaves)
+                and all(r() is t for r, t in zip(self._seen[1], leaves)))
+        self._seen = (stamp, [weakref.ref(t) for t in leaves])
+        return seen
+
+    def _device(self) -> torch.device:
+        return self._static[0].device if self._static else self._params[0].device
+
+    def _run_on_side_stream(self):
+        main = torch.cuda.current_stream(self._device())
+        side = torch.cuda.Stream(self._device())
         side.wait_stream(main)
         with torch.cuda.stream(side):
-            out = self.fn(params, self._step, *self._static_inputs)
+            out = self.fn(self._static_params, self._step, *self._static_inputs)
         main.wait_stream(side)
         return out
 
-    def _capture(self, params) -> None:
+    def _capture(self) -> None:
         before = dict(hashgrid_cuda.launches)
-        stream = torch.cuda.current_stream(self._step.device)
+        stream = torch.cuda.current_stream(self._device())
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
+        # torch.cuda.graph empties the allocator's cache before it captures
+        # but no longer collects garbage: the memory pools of graphs in a
+        # dead reference cycle would stay reserved, and a capture short of
+        # memory fails
+        gc.collect()
         try:
             with torch.cuda.graph(graph):
-                out = self.fn(params, self._step, *self._static_inputs)
+                out = self.fn(self._static_params, self._step, *self._static_inputs)
         except Exception as e:
             torch.cuda.set_stream(stream)  # a failed capture_end leaves the capture stream current
             raise RuntimeError("capturing the step as a CUDA graph failed (it is not run eagerly instead)") from e

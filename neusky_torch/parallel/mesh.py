@@ -60,7 +60,7 @@ from neusky_torch.models.pipeline import (
     train_loss_fn,
 )
 from neusky_torch.parallel.collectives import average_grads, mesh_axis
-from neusky_torch.parallel.graphs import CapturedStep
+from neusky_torch.parallel.graphs import CapturedStep, use_graph
 from neusky_torch.tree import tree_leaves
 
 BACKENDS = ("nccl", "gloo")
@@ -178,13 +178,8 @@ def _finish(params, mesh, total, loss_dict):
 def _graphed(graphed: Optional[bool], model: NeuSkyModel, mesh) -> bool:
     """Whether a step factory captures (see the module docstring)."""
     on_mesh = mesh is not None or model.mesh is not None
-    if graphed is None:
-        return model.device.type == "cuda" and not on_mesh
-    if graphed and model.device.type != "cuda":
-        raise ValueError(f"graphed=True needs a CUDA device, the model is on {model.device}")
-    if graphed and on_mesh:
-        raise ValueError("graphed=True with a mesh: the mesh step runs eagerly (its collectives are not captured)")
-    return bool(graphed)
+    return use_graph(graphed, model.device, "with a mesh: the mesh step runs eagerly (its collectives are not "
+                     "captured)" if on_mesh else None)
 
 
 def _graph_train_step(step_fn, model, pipeline_config, optimizer, split: bool) -> Callable:

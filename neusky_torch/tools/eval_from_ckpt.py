@@ -48,6 +48,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="the illumination_prior_dir the checkpoint was trained with: the fit starts from its "
                     "init_latent")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the steps, fits, renders and LPIPS op by op (default: CUDA graphs on the card)")
     return ap.parse_args(argv)
 
 
@@ -97,13 +99,14 @@ def main(argv=None) -> dict:
     fit_first = fit_last = None
     if not args.no_fit:
         t0 = time.perf_counter()
-        params, losses = fit_eval_latents(model, params, dm, steps=args.fit_steps, sample_region="full_image")
+        params, losses = fit_eval_latents(model, params, dm, steps=args.fit_steps, sample_region="full_image",
+                                          host_loop=args.eager)
         fit_first, fit_last = float(losses[0]), float(losses[-1])
         print(json.dumps({"eval_latent_fit": {"steps": args.fit_steps, "loss_first": fit_first,
                                               "loss_last": fit_last, "seconds": round(time.perf_counter() - t0, 1)}}),
               flush=True)
 
-    chunk_fn, chunk_size = make_render_chunk_fn(model, args.chunk_size)
+    chunk_fn, chunk_size = make_render_chunk_fn(model, args.chunk_size, graphed=False if args.eager else None)
     h = w = args.width
     albedo_gt = np.broadcast_to(np.asarray(SyntheticSceneConfig().albedo, np.float32), (h, w, 3))
     panels_dir = Path(args.panels) if args.panels else None
@@ -116,7 +119,7 @@ def main(argv=None) -> dict:
         outputs = render_camera(model, params, rb, i, chunk_fn, chunk_size)
         dt = time.perf_counter() - t0
         metrics, images = image_metrics_and_panels(
-            model, params, outputs, batch, h, w, latent_slot=i,
+            model, params, outputs, batch, h, w, latent_slot=i, graphed=False if args.eager else None,
             gt_layers={"albedo": albedo_gt, "normal": eval_scene["normals"][i], "depth": eval_scene["depths"][i]},
         )
         metrics["num_rays_per_sec"] = h * w / dt

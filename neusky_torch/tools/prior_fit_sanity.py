@@ -38,6 +38,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--out", default=None)
     ap.add_argument("--no-prior", action="store_true", help="ablation: keep the random frozen decoder")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the steps, fits, renders and LPIPS op by op (default: CUDA graphs on the card)")
     return ap.parse_args(argv)
 
 
@@ -111,7 +113,7 @@ def build(args) -> PriorFitRun:
     if not args.no_prior:
         params = load_illumination_prior(params, cfg)
     optimizer = GroupedAdam(params, default_neusky_optimizer_groups(args.steps + 1))
-    return PriorFitRun(args, cfg, model, scene, dm, params, make_train_step(model, pipe, optimizer),
+    return PriorFitRun(args, cfg, model, scene, dm, params, make_train_step(model, pipe, optimizer, graphed=False if args.eager else None),
                        torch.Generator(device=model.device).manual_seed(1))
 
 
@@ -148,7 +150,7 @@ def run(r: PriorFitRun, draws_fn: Optional[Callable[[int], dict]] = None) -> Lis
     params = {**r.params, "eval_latents": {**r.params["eval_latents"], "eval_latents": g["train_latents"][:n_eval],
                                            "eval_scale": g["train_scale"][:n_eval]}}
     rb = r.scene["cameras"].to(r.model.device).generate_rays(0)
-    outs = render_camera(r.model, params, rb, 0, chunk_size=PX * PX)
+    outs = render_camera(r.model, params, rb, 0, chunk_size=PX * PX, graphed=False if args.eager else None)
     pred = np.clip(outs["rgb"].reshape(PX, PX, 3), 0, 1)
     gt = np.asarray(r.scene["images"][0]).reshape(PX, PX, 3)
     sky = np.asarray(r.scene["masks"][0]).reshape(PX, PX, 4)[..., 3] > 0.5

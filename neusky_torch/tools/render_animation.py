@@ -55,7 +55,8 @@ def cmd_camera_path(args) -> dict:
             fy=torch.tensor([fy], dtype=torch.float32), cx=torch.tensor([res_w / 2.0]), cy=torch.tensor([res_h / 2.0]),
             width=res_w, height=res_h, camera_type=int(CameraType.PERSPECTIVE),
         ).to(model.device)
-        outs = render_camera(model, params, cam.generate_rays(0), args.illumination_idx, chunk_size=args.chunk_size)
+        outs = render_camera(model, params, cam.generate_rays(0), args.illumination_idx, chunk_size=args.chunk_size,
+                             graphed=False if args.eager else None)
         rgb = np.clip(outs["rgb"].reshape(res_h, res_w, 3), 0, 1)
         save_png(os.path.join(args.out, f"frame_{i:04d}.png"), rgb)
         seq.append(rgb)
@@ -76,7 +77,8 @@ def cmd_illumination_rotation(args) -> dict:
     h, w = cams.height, cams.width
     seq = render_illumination_animation(
         model, params, rb, args.illumination_idx,
-        AnimationConfig(num_frames=args.frames, output_dir=args.out, chunk_size=args.chunk_size),
+        AnimationConfig(num_frames=args.frames, output_dir=args.out, chunk_size=args.chunk_size,
+                        graphed=False if args.eager else None),
     )
     for i, frame in enumerate(seq):
         save_png(os.path.join(args.out, f"frame_{i:04d}.png"), np.clip(frame.reshape(h, w, 3), 0, 1))
@@ -132,6 +134,8 @@ def parse_args(argv=None) -> argparse.Namespace:
         p.add_argument("--rays-per-batch", type=int, default=1024)
         p.add_argument("--synthetic-demo", action="store_true", default=True)
         p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+        p.add_argument("--eager", action="store_true",
+                       help="run the steps, fits, renders and LPIPS op by op (default: CUDA graphs on the card)")
 
     p = sub.add_parser("camera-path", help="render along a nerfstudio camera-path JSON")
     p.add_argument("path_json")

@@ -37,6 +37,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--chunk-size", type=int, default=4096)
     ap.add_argument("--tiny", action="store_true", help="a train_sanity --tiny checkpoint (a CPU rehearsal)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the steps, fits, renders and LPIPS op by op (default: CUDA graphs on the card)")
     return ap.parse_args(argv)
 
 
@@ -76,7 +78,7 @@ def main(argv=None) -> dict:
     cams = scene["cameras"].to(model.device)
     h, w = cams.height, cams.width
     rb = cams.generate_rays(args.cam)
-    outs = render_camera(model, params, rb, args.cam, chunk_size=args.chunk_size)
+    outs = render_camera(model, params, rb, args.cam, chunk_size=args.chunk_size, graphed=False if args.eager else None)
     pred = np.clip(outs["rgb"].reshape(h, w, 3), 0, 1)
     gt = np.asarray(scene["images"][args.cam]).reshape(h, w, 3)
     mse = float(np.mean((pred - gt) ** 2))

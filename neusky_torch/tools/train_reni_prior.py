@@ -63,6 +63,8 @@ def parse_args(argv=None):
                     help="most share of z = 0 decode directions whose sRGB render is clipped (corpus skies are "
                     "themselves 50-84%% saturated; a flat plateau is ~100%%)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the steps, fits, renders and LPIPS op by op (default: CUDA graphs on the card)")
     args = ap.parse_args(argv)
     if args.train_psnr_gate is None:
         args.train_psnr_gate = 28.0 if args.autodecoder else 16.0
@@ -98,7 +100,8 @@ def gates(args, trainer, heldout_skies: np.ndarray, field_cfg) -> dict:
     field, decoder, dev = trainer.field, trainer.params["decoder"], trainer.device
     sample = range(0, args.num_skies, max(1, args.num_skies // 16))
     train_psnr = float(np.mean([trainer.reconstruction_psnr(i) for i in sample]))
-    _, heldout_psnrs = trainer.fit_heldout_latents(heldout_skies, steps=250, pixels_per_step=args.pixels_per_step)
+    _, heldout_psnrs = trainer.fit_heldout_latents(heldout_skies, steps=250, pixels_per_step=args.pixels_per_step,
+                                                   graphed=False if args.eager else None)
     heldout_psnr = float(np.mean(heldout_psnrs))
 
     with torch.no_grad():
@@ -170,7 +173,8 @@ def restore_for_gates(args, trainer, train_skies: np.ndarray, out: Path) -> None
                                        SimpleNamespace(illumination_prior_dir=str(out)), init_latent=False)
     trainer.params["decoder"] = restored["illumination_decoder"]
     n_fit = min(32, args.num_skies)
-    z_train, _ = trainer.fit_heldout_latents(train_skies[:n_fit], steps=250, pixels_per_step=args.pixels_per_step)
+    z_train, _ = trainer.fit_heldout_latents(train_skies[:n_fit], steps=250, pixels_per_step=args.pixels_per_step,
+                                             graphed=False if args.eager else None)
     with torch.no_grad():
         trainer.params["latents"][:n_fit] = torch.as_tensor(z_train, device=trainer.device)
     args.num_skies = n_fit
@@ -201,7 +205,7 @@ def main(argv=None) -> int:
             num_steps=args.steps, pixels_per_step=args.pixels_per_step, steps_per_call=min(100, args.steps),
             seed=args.seed,
         ),
-        train_skies, device=args.device,
+        train_skies, device=args.device, graphed=False if args.eager else None,
     )
     out = Path(args.output)
     if not out.is_absolute():

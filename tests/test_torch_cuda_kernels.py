@@ -442,3 +442,136 @@ def test_graphed_trainer_resumes_as_the_eager_trainer(cuda_device, tmp_path):
     close = cs.same_state_step(as_bench(b), as_bench(a), False, a.step)
     assert close["ok"] and close["loss_rel"] <= 1e-4, close
 
+
+
+GRAPH_PATHS = ("ddf_step", "reni_step", "envmap_fit", "rotation_fit", "render_chunk", "rotating_chunk", "lpips")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", GRAPH_PATHS)
+def test_captured_path_equals_its_eager_self(cuda_device, path):
+    """Each path captured besides the training step, on the tiny
+    configuration, against itself run eagerly from the same params and
+    draws (``chip_smoke.py`` phase 17's functions and bounds at a small
+    size): 5 DDF and RENI steps, 10-step envmap and rotation fits, renders
+    of 70 rays (a padded chunk) and 64 rays in chunks of 64, LPIPS of two
+    16 × 16 images; K1 0 in both."""
+    from neusky_torch.configs.tiny_config import tiny_model_config
+    from neusky_torch.core.spherical import rot_z
+    from neusky_torch.data.sky_generator import generate_sky_corpus
+    from neusky_torch.fields.reni import RENIField, RENIFieldConfig
+    from neusky_torch.models.neusky import NeuSkyModel
+    from neusky_torch.sampling.ddf_sampler import DDFSamplerConfig
+
+    cs = _chip_smoke()
+    card = "test"
+    field_cfg = RENIFieldConfig(latent_dim=8, hidden_features=16, hidden_layers=2, mapping_layers=2,
+                                mapping_features=16, num_attention_heads=2, num_attention_layers=2,
+                                fixed_decoder=False)
+    model = NeuSkyModel(tiny_model_config(2, 2), device=cuda_device)
+    params = model.init(torch.Generator(cuda_device).manual_seed(0))
+    make_dm = lambda: cs.eval_datamanager("cuda", train_cams=2, eval_cams=2, px=16, rays=(2, 16), sky=8)  # noqa: E731
+    if path == "ddf_step":
+        sampler = DDFSamplerConfig(num_samples_on_sphere=2, num_rays_per_sample=16, only_sample_upper_hemisphere=True,
+                                   concentration=20.0)
+        row = cs.graph_ddf(model, params, make_dm, card, steps=5, sampler=sampler, num_sky_rays=8)
+    elif path == "reni_step":
+        row = cs.graph_reni(generate_sky_corpus(4, width=32, seed=3), field_cfg, card, steps=5, pixels=64)
+    elif path == "envmap_fit":
+        field = RENIField(field_cfg)
+        decoder = field.init(torch.Generator(cuda_device).manual_seed(1), cuda_device)
+        row = cs.graph_envmap_fit(field, decoder, generate_sky_corpus(5, width=32, seed=4), card, steps=10, pixels=64)
+    elif path == "rotation_fit":
+        gt = torch.randn((2, model.config.illumination.latent_dim, 3), generator=torch.Generator(cuda_device).manual_seed(5),
+                         device=cuda_device)
+        row = cs.graph_rotation_fit(model, params, make_dm, gt, card, steps=10)
+    elif path in ("render_chunk", "rotating_chunk"):
+        rays = make_dm().eval_image_bundle(0)[0]
+        rotation = rot_z(torch.tensor(0.7, device=cuda_device)) if path == "rotating_chunk" else None
+        row, _ = cs.graph_render(model, params, [rays.slice(0, 70), rays.slice(70, 64)], card, rotation=rotation,
+                                 chunk_size=64)
+    else:
+        g = np.random.default_rng(6)
+        row = cs.graph_lpips(g.random((16, 16, 3)).astype(np.float32), g.random((16, 16, 3)).astype(np.float32), card)
+    assert row["ok"] and row["eager_k1_launches"] == row["graphed_k1_launches"] == 0, row
+    assert row["capture_s"] is not None, row
+
+
+@pytest.mark.cuda
+def test_a_capture_frees_the_pools_of_graphs_dropped_in_a_cycle(cuda_device):
+    """A captured function kept in a reference cycle holds its static
+    buffers and its graph's pool until the garbage collector breaks the
+    cycle; the next capture collects first, so
+    the 2 GiB they hold are no longer allocated after it (and its
+    ``torch.cuda.graph`` empties the cache, so no longer reserved)."""
+    import gc
+
+    from neusky_torch.parallel.graphs import CapturedStep
+
+    gc.disable()  # the collector runs only where the capture runs it
+    try:
+        x = torch.zeros(2**28, device=cuda_device)  # 1 GiB
+        holder = {"step": CapturedStep(lambda _, __, t: t + 1.0)}
+        holder["self"] = holder
+        for _ in range(3):
+            holder["step"](None, None, x)
+        del holder
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        step = CapturedStep(lambda _, __, t: t * 2.0)
+        small = torch.ones(8, device=cuda_device)
+        outs = [step(None, None, small) for _ in range(3)]
+        torch.cuda.synchronize()
+        freed = held - torch.cuda.memory_allocated()
+    finally:
+        gc.enable()
+    assert step.graph is not None and all(torch.equal(o, small * 2.0) for o in outs)
+    assert freed >= 2 * 2**30 - 2**20, freed  # less the new graph's few bytes
+
+
+@pytest.mark.cuda
+def test_a_forward_capture_copies_its_params_once_per_params_tree(cuda_device):
+    """A forward capture (the render chunk's kind) copies its params into
+    its graph only when they are other tensors than its last call's or were
+    written since: a second call with the same params copies none of them,
+    and a call after an eager in-place write, after a captured step's
+    replay wrote them (a replay moves no version counter) or with other
+    tensors computes from the new values."""
+    from neusky_torch.parallel.graphs import CapturedStep
+
+    class Copies(torch.utils._python_dispatch.TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.count = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.count += func is torch.ops.aten.copy_.default
+            return func(*args, **(kwargs or {}))
+
+    def copies(params):
+        mode = Copies()
+        with mode:
+            out = forward(params, None, x)
+        return mode.count, out
+
+    params = {"a": torch.ones(4, device=cuda_device), "b": torch.full((4,), 2.0, device=cuda_device)}
+    x = torch.arange(4.0, device=cuda_device)
+    forward = CapturedStep(lambda p, _, t: p["a"] * t + p["b"])
+    update = CapturedStep(lambda p, _: p["a"].add_(1.0), optimizer=object())
+    update(params, None)  # eager
+    update(params, None)  # captured, then replayed
+    want = lambda p: p["a"] * x + p["b"]  # noqa: E731
+    for _ in range(3):  # eager, captured, replayed
+        out = forward(params, None, x)
+    assert forward.graph is not None and torch.equal(out, want(params))
+    n_new, out = copies(params)
+    assert torch.equal(out, want(params))
+    params["b"].mul_(3.0)  # an eager write
+    n_written, out = copies(params)
+    assert torch.equal(out, want(params)) and n_written == n_new + 2, (n_new, n_written)
+    update(params, None)  # a replay: no version counter moves
+    n_replayed, out = copies(params)
+    assert torch.equal(out, want(params)) and n_replayed == n_written, (n_written, n_replayed)
+    other = {k: v + 1.0 for k, v in params.items()}
+    n_other, out = copies(other)
+    assert torch.equal(out, want(other)) and n_other == n_written, (n_written, n_other)
