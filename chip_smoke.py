@@ -9,8 +9,9 @@ runs captured as a CUDA graph (``neusky_torch/parallel/graphs.py``: the
 first call eager, the second captured, then replays), as the entry
 points run them; K1's launches are counted through the replays,
 and where a phase keeps K1's inputs it takes them from one eager step on
-the same params.  Phase 13, the mesh, runs eagerly (its collectives are
-not captured):
+the same params.  Phase 13, the mesh, runs both ways: gloo ranks eagerly
+(gloo's collectives cannot be captured), NCCL ranks eagerly and
+captured with their collectives:
 
 1. the card (``torch.cuda.get_device_name``, ``nvidia-smi`` name and power
    limit); build every kernel from ``neusky_torch/csrc`` with ``nvcc``
@@ -143,10 +144,21 @@ not captured):
    process does (loss 1e-4 relative, rank 0's averaged gradient within
    phase 3's bounds, its params within 1e-6 but where a gradient within
    its bound of zero flips the update, every rank's params bitwise
-   equal), then ``Trainer(mesh=)`` for 3 warm-up + 4 steps a rank with K1
-   (7 a step), the DDF's visibility queries (the rank's rays × its share
-   of the directions), steady ms a step, the gradient all-reduce's ms and
-   peak memory logged per rank;
+   equal), then ``Trainer(mesh=, graphed=False)`` for 3 warm-up + 4
+   steps a rank with K1 (7 a step), the DDF's visibility queries (the
+   rank's rays × its share of the directions), steady ms a step, the
+   gradient all-reduce's ms and peak memory logged per rank; then the
+   captured NCCL rank step (one CUDA graph replay a step, its all-reduces
+   inside), a card a rank: (e) one rank on this card, in (a)'s rank
+   process after its eager steps, and (f) the 2 × 2 mesh and ``data`` = 4
+   where there are four cards (logged as not run otherwise): in (f) the
+   check step as a replay against the one-process step (the bounds
+   above); ``Trainer(mesh=)`` with its default (captured) step for 3 + 4
+   steps (K1 7 a replay), then 3 steps of it each against
+   ``Trainer(mesh=, graphed=False)`` from one state (losses 1e-4,
+   params at phase 16's bounds), K1 against its plain version and timed on
+   the rank's own inputs, one profiled replay (busy share, host calls, the
+   NCCL kernels' ms and share); every rank's params bitwise equal;
 14. the port's bench, ``python -m neusky_torch.bench`` (what ``bench.py``
    builds, phase 10's (a) and its fused step), in a child process with
    ``NEUSKY_BENCH_STEPS=4 NEUSKY_BENCH_REPEATS=1``: its last line parses,
@@ -206,6 +218,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from http.server import ThreadingHTTPServer
@@ -714,11 +727,11 @@ def run_path(label: str, cfg, pcfg, steps: int, card: str, require_groups=()):
 @contextlib.contextmanager
 def eager_steps(trainer):
     """``trainer``'s step run eagerly inside the block, on the same params
-    and Adam state as its captured step (a replay calls no Python, so K1's
-    inputs are kept from an eager step)."""
+    and Adam state (and mesh) as its captured step (a replay calls no
+    Python, so K1's inputs are kept from an eager step)."""
     graphed = trainer.train_step
     make = mesh_mod.make_train_step_split if trainer.config.use_split_step else mesh_mod.make_train_step
-    trainer.train_step = make(trainer.model, trainer.pipeline_config, trainer.optimizer, graphed=False)
+    trainer.train_step = make(trainer.model, trainer.pipeline_config, trainer.optimizer, trainer.mesh, graphed=False)
     try:
         yield trainer
     finally:
@@ -728,6 +741,7 @@ def eager_steps(trainer):
 # device-op name fragments → kind, first match wins
 KERNEL_KINDS = (
     ("K1", ("scatter_levels_kernel",)),
+    ("NCCL", ("nccl",)),
     ("matmul", ("gemm", "gemv", "Kernel2", "xmma")),
     ("layer_norm", ("layer_norm",)),
     ("sin/cos (SIREN)", ("sin_kernel", "cos_kernel")),
@@ -2094,10 +2108,24 @@ def split_ab() -> int:
 
 
 MESH_WARMUP, MESH_STEPS = 3, 4
-# label → (ranks, dirs, backend): (a) one rank over NCCL; (b) two ranks on
-# the one card over gloo; (c) four, data × dirs = 2 × 2; (d) (c) over NCCL
-# with a card a rank, where there are four
-MESH_RUNS = {"(a)": (1, 1, "nccl"), "(b)": (2, 1, "gloo"), "(c)": (4, 2, "gloo"), "(d)": (4, 2, "nccl")}
+# label → (ranks, dirs, backend, check step, trainers).  The check step runs
+# eagerly ("eager") or as a replay of the captured rank step ("replay");
+# then ``Trainer(mesh=)`` trains with each of ``trainers``: "eager"
+# (``graphed=False``) or "captured" (its default over NCCL).  (a)/(e) one
+# NCCL rank on the one card, eager and captured in one process; (b) two
+# gloo ranks sharing the card; (c) four, data × dirs = 2 × 2; (d) (c) over
+# NCCL, a card a rank; (f) the 2 × 2 and data = 4 meshes captured.  (d) and
+# (f) run where there are four cards.  (a)/(e)'s check step stays eager:
+# capturing its 2,048 visibility chunks takes ~2 min on one rank
+MESH_RUNS = {
+    "(a)/(e)": (1, 1, "nccl", "eager", ("eager", "captured")),
+    "(b)": (2, 1, "gloo", "eager", ("eager",)),
+    "(c)": (4, 2, "gloo", "eager", ("eager",)),
+    "(d)": (4, 2, "nccl", "eager", ("eager",)),
+    "(f) 2x2": (4, 2, "nccl", "replay", ("captured",)),
+    "(f) data4": (4, 1, "nccl", "replay", ("captured",)),
+}
+MESH_SAME_STATE_STEPS = 3  # captured: replay against eager step from one state
 # phase 3's bounds: losses 1e-4, gradients 2e-3 of scale, the DDF's 5e-3
 MESH_GRAD_REL = {"ddf_field": 5e-3}
 
@@ -2217,53 +2245,32 @@ def mesh_compare(cfg, params, ref, data: int) -> dict:
     return dict(grad_bad=grad_bad, grad_worst=worst, param_bad=param_bad, param_worst=moved)
 
 
-def mesh_rank(rank, world_size, init_method, dirs, backend, work):
-    """One rank of phase 13 (run by ``run_ranks``): the check step on the
-    reference's batch and draws (rank 0 holds its gradient and params to
-    the one-process step's, :func:`mesh_compare`), then ``Trainer(mesh=)``
-    on bench's data for MESH_WARMUP + MESH_STEPS steps, K1, the DDF's
-    visibility queries, the step's wall time, the gradient all-reduce's
-    time and the batch broadcast's time counted every step → this rank's
-    numbers."""
-    from neusky_torch.engine import trainer as trainer_module
+def mesh_train(trainer, dev) -> dict:
+    """MESH_WARMUP + MESH_STEPS steps of ``trainer`` (a ``Trainer(mesh=)``),
+    each timed alone → K1's launches a step (counted through the
+    replays), the DDF's visibility queries a step (Python calls: none in a
+    replay), the losses, the wall ms of each step and their steady mean,
+    the params' digest after, and eagerly the gradient all-reduce's ms a
+    step (host-synchronised, which a capture cannot hold)."""
+    captured = getattr(trainer.train_step, "captured", None)
+    reduce_s = [0.0]
+    average = mesh_mod.average_grads
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = f"cuda:{rank}" if backend == "nccl" else "cuda"
-    mesh = mesh_mod.make_mesh(world_size, dirs, backend=backend, rank=rank, init_method=init_method, device=dev)
-    cfg, pcfg, dm = mesh_setup(dev)
-    ref = torch.load(Path(work) / "reference.pt", weights_only=False)
-    total, params, check_launches, check_queries = mesh_check_step(cfg, pcfg, dev, mesh, ref["batch"],
-                                                                   ref["draws"])
-    out = {"rank": rank, "check_loss": total, "check_digest": tree_digest(params), "check_launches": check_launches,
-           "check_queries": check_queries}
-    if rank == 0:
-        out.update(mesh_compare(cfg, params, ref, world_size // dirs))
-    del params
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
+    def timed(*a, **k):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        r = average(*a, **k)
+        torch.cuda.synchronize(dev)
+        reduce_s[0] += time.perf_counter() - t0
+        return r
 
-    trainer = Trainer(TrainerConfig(max_num_iterations=100001, steps_per_log=1, seed=0), NeuSkyModel(cfg, device=dev),
-                      pcfg, dm, optimizer_groups=default_neusky_optimizer_groups(100001), device=dev, mesh=mesh)
-    reduce_s, broadcast_s = [0.0], [0.0]
-    average, replicate = mesh_mod.average_grads, trainer_module.replicate
-
-    def timed(fn, acc):
-        def run(*a, **k):
-            torch.cuda.synchronize(dev)
-            t0 = time.perf_counter()
-            r = fn(*a, **k)
-            torch.cuda.synchronize(dev)
-            acc[0] += time.perf_counter() - t0
-            return r
-        return run
-
-    # the trainer's per-step batch broadcast goes through its module's name
-    mesh_mod.average_grads, trainer_module.replicate = timed(average, reduce_s), timed(replicate, broadcast_s)
-    times, launches, queries, reduce_ms, broadcast_ms, losses = [], [], [], [], [], []
+    if captured is None:
+        mesh_mod.average_grads = timed
+    times, launches, queries, reduce_ms, losses = [], [], [], [], []
     try:
         with count_visibility_queries(trainer.model) as q:
             for _ in range(MESH_WARMUP + MESH_STEPS):
-                before, q[0], reduce_s[0], broadcast_s[0] = k1_launches(), 0, 0.0, 0.0
+                before, q[0], reduce_s[0] = k1_launches(), 0, 0.0
                 torch.cuda.synchronize(dev)
                 t0 = time.perf_counter()
                 rec = trainer.run(1)[-1]
@@ -2272,35 +2279,164 @@ def mesh_rank(rank, world_size, init_method, dirs, backend, work):
                 launches.append(k1_launches() - before)
                 queries.append(q[0])
                 reduce_ms.append(reduce_s[0] * 1e3)
-                broadcast_ms.append(broadcast_s[0] * 1e3)
                 losses.append(rec["total_loss"])
     finally:
-        mesh_mod.average_grads, trainer_module.replicate = average, replicate
-    steady = times[MESH_WARMUP:]
-    out.update(
-        digest=tree_digest(trainer.params), launches=launches, queries=queries, losses=losses,
-        step_ms=[t * 1e3 for t in times], steady_ms=float(np.mean(steady)) * 1e3,
-        allreduce_ms=float(np.mean(reduce_ms[MESH_WARMUP:])),
-        broadcast_ms=float(np.mean(broadcast_ms[MESH_WARMUP:])),
-        peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
-        rays=int(mesh_mod.shard_batch(ref["batch"], mesh)["pixel_coords"].shape[0]),
-    )
+        mesh_mod.average_grads = average
+    out = dict(launches=launches, queries=queries, losses=losses, step_ms=[t * 1e3 for t in times],
+               steady_ms=float(np.mean(times[MESH_WARMUP:])) * 1e3, digest=tree_digest(trainer.params))
+    if captured is None:
+        out["allreduce_ms"] = float(np.mean(reduce_ms[MESH_WARMUP:]))
+    else:
+        out.update(capture_s=captured.capture_s, replays=captured.replays)
     return out
+
+
+def mesh_rank(rank, world_size, init_method, dirs, backend, work, label, card, check_step, trainers):
+    """One rank of a phase 13 run (run by ``run_ranks``; NCCL rank r on
+    ``cuda:r``, gloo ranks sharing the card):
+
+    1. the check step on the reference's batch and draws, eagerly
+       (:func:`mesh_check_step`) or as a replay of the captured rank step
+       (:func:`mesh_graph_check_step`); rank 0 holds its gradient and
+       params to the one-process step's (:func:`mesh_compare`);
+    2. for each of ``trainers``, ``Trainer(mesh=)`` (``graphed=False`` for
+       "eager", its default for "captured") trains (:func:`mesh_train`),
+       its peak allocated and reserved memory read from its build on, the
+       allocator's cache emptied first (``base_gib``: what was allocated
+       before it);
+    3. captured: MESH_SAME_STATE_STEPS more steps, each a replay and an
+       eager step from the replaying trainer's state
+       (:func:`same_state_step`; the eager trainer of 2 or a new one); one
+       eager step on that state keeping K1's inputs (the rank's own,
+       ``M/data`` points a site) and counting the DDF's visibility
+       queries, K1 held to its plain version and timed on each input; one
+       profiled replay: busy share, host calls, and the device time of the
+       NCCL kernels (the all-reduces; with other ranks a rank's NCCL kernel
+       also waits there for the slowest).
+
+    → this rank's numbers: its rays, "check", one entry a trainer, and the
+    seconds each part took."""
+    seconds, t0 = {}, time.perf_counter()
+    t_start = t0
+
+    def lap(name):
+        nonlocal t0
+        seconds[name], t0 = time.perf_counter() - t0, time.perf_counter()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = f"cuda:{rank}" if backend == "nccl" else "cuda"
+    mesh = mesh_mod.make_mesh(world_size, dirs, backend=backend, rank=rank, init_method=init_method, device=dev)
+    cfg, pcfg, dm = mesh_setup(dev)
+    ref = torch.load(Path(work) / "reference.pt", weights_only=False)
+    out = {"rank": rank, "rays": int(mesh_mod.shard_batch(ref["batch"], mesh)["pixel_coords"].shape[0])}
+    lap("setup")
+    if check_step == "replay":
+        total, params, launches, captured = mesh_graph_check_step(cfg, pcfg, dev, mesh, ref["batch"], ref["draws"])
+        out["check"] = dict(loss=total, launches=launches, replays=captured.replays)
+        del captured
+    else:
+        total, params, launches, queries = mesh_check_step(cfg, pcfg, dev, mesh, ref["batch"], ref["draws"])
+        out["check"] = dict(loss=total, launches=launches, queries=queries)
+    out["check"]["digest"] = tree_digest(params)
+    if rank == 0:
+        out["check"].update(mesh_compare(cfg, params, ref, world_size // dirs))
+    del params
+    lap("check_step")
+
+    def trainer(graphed):
+        return Trainer(TrainerConfig(max_num_iterations=100001, steps_per_log=1, seed=0),
+                       NeuSkyModel(cfg, device=dev), pcfg, dm, optimizer_groups=default_neusky_optimizer_groups(100001),
+                       device=dev, mesh=mesh, graphed=graphed)
+
+    built = {}
+    for kind in trainers:
+        release()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        built[kind] = trainer(None if kind == "captured" else False)
+        check(hasattr(built[kind].train_step, "captured") == (kind == "captured"),
+              f"{label}: the {kind} trainer's step is {'not ' * (kind == 'captured')}captured")
+        lap(f"{kind} trainer")
+        out[kind] = mesh_train(built[kind], dev)
+        out[kind].update(base_gib=base / 2**30, peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+                         peak_reserved_gib=torch.cuda.max_memory_reserved(dev) / 2**30)
+        lap(f"{kind} steps")
+    if "captured" in built:
+        graphed, got = built["captured"], out["captured"]
+        eager = built.get("eager") or trainer(False)
+        n = MESH_WARMUP + MESH_STEPS
+        got["same_state"] = [same_state_step(trainer_as_bench(eager), trainer_as_bench(graphed), False, n + i,
+                                             mesh=mesh) for i in range(MESH_SAME_STATE_STEPS)]
+        del eager
+        lap("same state")
+        with eager_steps(graphed), count_visibility_queries(graphed.model) as queries:
+            inputs = capture_k1_inputs(lambda: graphed.run(1))
+        got["eager_queries"] = queries[0]
+        sites = [measure_k1(f"{label} rank {rank} site {i}", rows, vals, t, 1)
+                 for i, (rows, vals, t) in enumerate(inputs)]
+        got["k1"] = {"launches": len(sites), "shapes": [[r["L"], r["M"]] for r in sites],
+                     "max_abs_err": max(r["max_abs_err"] for r in sites),
+                     **{k: sum(r[k] for r in sites) for k in ("ms", "plain_ms", "bound_ms", "library_ms")}}
+        del inputs
+        lap("k1")
+        prof = profile_call(lambda: graphed.run(1), got["steady_ms"] / 1e3, card,
+                            f"phase 13 {label} rank {rank} replay", top=5)
+        lap("profile")
+        nccl_ms = prof and prof["by_kind_ms"].get("NCCL", 0.0)
+        got.update(busy_share=prof and prof["busy_share"], device_ms=prof and prof["device_ms"],
+                   host_calls=prof and prof["host_calls"], allreduce_ms=nccl_ms,
+                   allreduce_share=prof and nccl_ms / prof["device_ms"], digest=tree_digest(graphed.params))
+    seconds["total"] = time.perf_counter() - t_start
+    out["seconds"] = seconds
+    return out
+
+
+def reset_in_place(params, start: dict, optimizer) -> None:
+    """``params`` back to ``start`` and ``optimizer`` (a capturable
+    ``GroupedAdam``) back to before its first update, in the same tensors,
+    which a captured step keeps: Adam's zero moments and step count are
+    those it starts from."""
+    with torch.no_grad():
+        for k, v in tree_items(params):
+            v.copy_(start[k])
+        for state in optimizer.optimizer.state.values():
+            for t in state.values():
+                t.zero_()
+    optimizer.count = 0
+
+
+def mesh_graph_check_step(cfg, pcfg, dev, mesh, batch, draws):
+    """:func:`mesh_check_step` as a replay of the captured rank step: its
+    eager first call and its capture (and first replay) on the check step's
+    inputs, the params and Adam state put back, then the check step →
+    (total loss, params, K1 launches of that replay, the step's
+    ``CapturedStep``)."""
+    model, params = mesh_init(mesh_check_config(cfg), dev, mesh)
+    opt = GroupedAdam(params, default_neusky_optimizer_groups(100001))
+    step_fn = mesh_mod.make_train_step(model, pcfg, opt, mesh, graphed=True)
+    local = mesh_mod.shard_batch(_batch_to(batch, dev), mesh)
+    draws = _to(draws, dev)
+    start = {k: v.detach().clone() for k, v in tree_items(params)}
+    for _ in range(2):
+        step_fn(params, local, 0.0, draws)
+    reset_in_place(params, start, opt)
+    before = k1_launches()
+    aux = step_fn(params, local, 0.0, draws)
+    torch.cuda.synchronize(dev)
+    return float(aux["total_loss"]), params, k1_launches() - before, step_fn.captured
 
 
 def run_mesh_path(card: str):
     """Phase 13: bench's configuration (a) over a mesh.  The one-process
     step on one global batch (the native sampler's first) and one set of
-    draws is the reference; then (a) one rank over NCCL, (b) two ranks on
-    the one card over gloo, (c) four, ``data`` × ``dirs`` = 2 × 2, over
-    gloo, and (d) (c) over NCCL with a card a rank where there are four.
-    Each run's check step (:func:`mesh_check_config`'s chunks) must match
+    draws is the reference.  Each run of MESH_RUNS (:func:`mesh_rank`)
+    takes a check step (:func:`mesh_check_config`'s chunks) that must match
     the reference (loss 1e-4 relative, rank 0's gradient and params by
-    :func:`mesh_compare`, every rank's params bitwise equal), then each
-    rank trains MESH_WARMUP + MESH_STEPS steps of bench's (a) through
-    ``Trainer(mesh=)``: K1 7 times a step on every rank, the DDF's
-    visibility queries the rank's rays × its share of the directions, the
-    params bitwise equal on every rank at the end."""
+    :func:`mesh_compare`, every rank's params bitwise equal), then trains
+    bench's (a) through ``Trainer(mesh=)``, eagerly or captured: K1 7
+    times a step on every rank, the DDF's visibility queries the rank's
+    rays × its share of the directions, the params bitwise equal on every
+    rank at the end (:func:`check_mesh_run`)."""
     t_phase = time.perf_counter()
     cfg, pcfg, dm = mesh_setup("cuda")
     expected = expected_launches_per_step(cfg, pcfg)
@@ -2316,7 +2452,7 @@ def run_mesh_path(card: str):
         draws = model.draw(None, gen, n_rays)
         draws["ddf"] = draw_ddf_fit(model, pcfg, None, gen)
         sky_rounding = {data: mesh_sky_rounding(cfg, batch, data)
-                        for data in sorted({w // dirs for w, dirs, _ in MESH_RUNS.values()})}
+                        for data in sorted({w // d for w, d, *_ in MESH_RUNS.values()})}
         total, params, launches, queries = mesh_check_step(cfg, pcfg, "cuda", None, batch, draws)
         check(launches == expected and queries == n_rays * d_query,
               f"reference step: K1 {launches} (expected {expected}), DDF queries {queries}")
@@ -2327,50 +2463,101 @@ def run_mesh_path(card: str):
         torch.cuda.empty_cache()
         log(f"phase 13 reference (one process, {n_rays} rays, {d_query} queried directions in chunks of "
             f"{mesh_check_config(cfg).visibility_query_chunk}): total loss {total:.6f}")
-        for label, (world, dirs, backend) in MESH_RUNS.items():
+        for label, (world, dirs, backend, check_step, trainers) in MESH_RUNS.items():
             if backend == "nccl" and torch.cuda.device_count() < world:
                 log(f"phase 13 {label} not run: {torch.cuda.device_count()} card(s) for {world} NCCL ranks")
                 continue
             t0 = time.perf_counter()
-            ranks = run_ranks("chip_smoke:mesh_rank", world, dict(dirs=dirs, backend=backend, work=work))
-            wall = time.perf_counter() - t0
-            r0 = ranks[0]
-            data = world // dirs
-            shares = [d_query // dirs + (1 if j < d_query % dirs else 0) for j in range(dirs)]
-            for r in ranks:
-                want_q = (n_rays // data) * shares[r["rank"] % dirs]
-                check(r["rays"] == n_rays // data, f"{label} rank {r['rank']}: {r['rays']} rays")
-                check(r["check_launches"] == expected and r["launches"] == [expected] * len(r["launches"]),
-                      f"{label} rank {r['rank']}: K1 launches {r['check_launches']}, {r['launches']} "
-                      f"(expected {expected} a step)")
-                check(r["check_queries"] == want_q and r["queries"] == [want_q] * len(r["queries"]),
-                      f"{label} rank {r['rank']}: DDF queries {r['check_queries']}, {r['queries']} (expected {want_q})")
-                check(all(math.isfinite(x) for x in r["losses"]), f"{label} rank {r['rank']}: losses {r['losses']}")
-                check(abs(r["check_loss"] - total) <= 1e-4 * abs(total),
-                      f"{label} rank {r['rank']}: check loss {r['check_loss']:.7f} vs one process {total:.7f}")
-            check(len({r["check_digest"] for r in ranks}) == 1, f"{label}: params after the check step differ by rank")
-            check(len({r["digest"] for r in ranks}) == 1, f"{label}: params after the steps differ by rank")
-            check(not r0["grad_bad"], f"{label}: rank 0's gradient differs from the one-process step: {r0['grad_bad']}")
-            check(not r0["param_bad"],
-                  f"{label}: rank 0's params after the check step differ from one process's: {r0['param_bad']}")
-            for r in ranks:
-                log(f"phase 13 {label} rank {r['rank']}: steady {r['steady_ms']:.3f} ms a step (steps "
-                    + json.dumps([round(t, 1) for t in r["step_ms"]]) + f"), all-reduce {r['allreduce_ms']:.3f} ms a "
-                    f"step, batch broadcast {r['broadcast_ms']:.3f} ms a step, peak {r['peak_gib']:.3f} GiB, K1 "
-                    f"{r['launches'][-1]} a step, DDF queries {r['queries'][-1]} a step, {r['rays']} rays ({card})")
-            summary = {"run": label, "ranks": world, "data": data, "dirs": dirs, "backend": backend,
-                       "check_loss": r0["check_loss"], "one_process_loss": total,
-                       "loss_rel_err": abs(r0["check_loss"] - total) / abs(total),
-                       "grad_worst_over_allowance_by_group": r0["grad_worst"],
-                       "param_worst_abs_by_group": r0["param_worst"],
-                       "steady_ms": [r["steady_ms"] for r in ranks], "allreduce_ms": [r["allreduce_ms"] for r in ranks],
-                       "broadcast_ms": [r["broadcast_ms"] for r in ranks],
-                       "peak_gib": [r["peak_gib"] for r in ranks], "k1_per_step": expected,
-                       "ddf_queries_per_step": [r["queries"][-1] for r in ranks], "wall_s": wall}
-            results[label] = summary
-            log("phase 13 " + json.dumps(summary))
+            ranks = run_ranks("chip_smoke:mesh_rank", world, dict(dirs=dirs, backend=backend, work=work, label=label,
+                                                                  card=card, check_step=check_step, trainers=trainers))
+            results[label] = check_mesh_run(label, backend, dirs, ranks, total, expected, n_rays, d_query, card,
+                                            time.perf_counter() - t0)
     log(f"phase 13 took {time.perf_counter() - t_phase:.3f} s")
     return results
+
+
+def check_mesh_run(label, backend, dirs, ranks, total, expected, n_rays, d_query, card, wall) -> dict:
+    """Phase 13's checks of one run's ranks (:func:`mesh_rank`), then its
+    log lines → its summary.  Every rank: its shard of the rays; its check
+    step K1 ``expected`` times (as a replay, the second after its capture),
+    eagerly the DDF queries its rays × its share of the directions, its
+    loss the one-process step's ``total`` within 1e-4 relative; each
+    trainer K1 ``expected`` times a step (through the replays) and finite
+    losses; eagerly those DDF queries every step; captured, a replay every
+    step after the first, every same-state step within GRAPH_LOSS_RTOL and
+    phase 16's bounds, K1 ``expected`` times and those DDF queries in an
+    eager step on its own inputs.  Every rank's params bitwise equal after
+    the check step and after each trainer's steps; rank 0's gradient and
+    params after the check step within :func:`mesh_compare`'s bounds."""
+    world = len(ranks)
+    data = world // dirs
+    shares = [d_query // dirs + (1 if j < d_query % dirs else 0) for j in range(dirs)]
+    kinds = [kind for kind in ("eager", "captured") if kind in ranks[0]]
+    for r in ranks:
+        who = f"{label} rank {r['rank']}"
+        want_q = (n_rays // data) * shares[r["rank"] % dirs]
+        c = r["check"]
+        check(r["rays"] == n_rays // data, f"{who}: {r['rays']} rays")
+        check(c["launches"] == expected and c.get("replays", 2) == 2 and c.get("queries", want_q) == want_q,
+              f"{who}: the check step's K1 {c['launches']} (expected {expected}), replays {c.get('replays')}, "
+              f"DDF queries {c.get('queries')} (expected {want_q})")
+        check(abs(c["loss"] - total) <= 1e-4 * abs(total), f"{who}: check loss {c['loss']:.7f} vs one process {total:.7f}")
+        for kind in kinds:
+            t = r[kind]
+            steps = len(t["launches"])
+            check(t["launches"] == [expected] * steps, f"{who} {kind}: K1 launches {t['launches']} (expected {expected})")
+            check(all(math.isfinite(x) for x in t["losses"]), f"{who} {kind}: losses {t['losses']}")
+            if kind == "eager":
+                check(t["queries"] == [want_q] * steps, f"{who} eager: DDF queries {t['queries']} (expected {want_q})")
+                continue
+            check(t["replays"] == steps - 1, f"{who} captured: {t['replays']} replays in {steps} steps")
+            check(all(s["ok"] and s["loss_rel"] <= GRAPH_LOSS_RTOL for s in t["same_state"]),
+                  f"{who}: the replayed step from the eager step's state differs: {t['same_state']}")
+            check(t["k1"]["launches"] == expected and t["eager_queries"] == want_q,
+                  f"{who}: K1 {t['k1']['launches']}, DDF queries {t['eager_queries']} in an eager step "
+                  f"(expected {expected}, {want_q})")
+    r0 = ranks[0]
+    check(len({r["check"]["digest"] for r in ranks}) == 1, f"{label}: params after the check step differ by rank")
+    check(not r0["check"]["grad_bad"],
+          f"{label}: rank 0's gradient differs from the one-process step: {r0['check']['grad_bad']}")
+    check(not r0["check"]["param_bad"],
+          f"{label}: rank 0's params after the check step differ from one process's: {r0['check']['param_bad']}")
+    for kind in kinds:
+        check(len({r[kind]["digest"] for r in ranks}) == 1, f"{label}: params after the {kind} steps differ by rank")
+    for r in ranks:
+        for kind in kinds:
+            t = r[kind]
+            line = (f"phase 13 {label} rank {r['rank']} {kind} ({backend}): steady {t['steady_ms']:.3f} ms a step "
+                    f"(steps " + json.dumps([round(x, 1) for x in t["step_ms"]]) + f"), peak {t['peak_gib']:.3f} GiB "
+                    f"allocated / {t['peak_reserved_gib']:.3f} GiB reserved (from {t['base_gib']:.3f} allocated), "
+                    f"K1 {t['launches'][-1]} a step, ")
+            if kind == "eager":
+                line += f"all-reduce {t['allreduce_ms']:.3f} ms a step, DDF queries {t['queries'][-1]} a step"
+            else:
+                k = t["k1"]
+                line += (f"capture {t['capture_s']:.3f} s; a profiled replay: busy {t['busy_share']}, "
+                         f"{t['host_calls']} host calls, NCCL {t['allreduce_ms']} ms ({t['allreduce_share']} of "
+                         f"device time); K1 on its own inputs {k['ms']:.4f} ms a step (bound {k['bound_ms']:.4f}, "
+                         f"plain {k['plain_ms']:.4f}, index_add_ {k['library_ms']:.4f}, shapes {k['shapes']}); "
+                         f"DDF queries {t['eager_queries']} a step")
+            log(line + f", {r['rays']} rays ({card})")
+        log(f"phase 13 {label} rank {r['rank']} seconds by part "
+            + json.dumps({part: round(v, 2) for part, v in r["seconds"].items()}))
+    summary = {"run": label, "ranks": world, "data": data, "dirs": dirs, "backend": backend,
+               "check": "replay" if "replays" in r0["check"] else "eager", "check_loss": r0["check"]["loss"],
+               "one_process_loss": total, "loss_rel_err": abs(r0["check"]["loss"] - total) / abs(total),
+               "grad_worst_over_allowance_by_group": r0["check"]["grad_worst"],
+               "param_worst_abs_by_group": r0["check"]["param_worst"], "k1_per_step": expected, "wall_s": wall}
+    keys = {"eager": ("steady_ms", "allreduce_ms", "peak_gib", "peak_reserved_gib"),
+            "captured": ("steady_ms", "capture_s", "busy_share", "host_calls", "allreduce_ms", "allreduce_share",
+                         "device_ms", "peak_gib", "peak_reserved_gib", "eager_queries", "k1")}
+    for kind in kinds:
+        summary[kind] = {key: [r[kind][key] for r in ranks] for key in keys[kind]}
+        if kind == "captured":
+            summary[kind].update(same_state_loss_rel=[[s["loss_rel"] for s in r[kind]["same_state"]] for r in ranks],
+                                 same_state_worst=[[s["worst"] for s in r[kind]["same_state"]] for r in ranks])
+    log("phase 13 " + json.dumps(summary))
+    return summary
 
 
 # ---------------------------------------------------------------------------
@@ -2448,12 +2635,19 @@ GRAPH_FIT_REL = 1e-4  # the fitted eval latents and scales, of their scale
 FLIP_LR_FACTOR = 7.0  # a step moves an entry by at most ~3.3 lr: twice that
 
 
+def trainer_as_bench(trainer):
+    """A ``Trainer`` under ``bench.Bench``'s names, for :func:`same_state_step`."""
+    return types.SimpleNamespace(model=trainer.model, pipeline=trainer.pipeline_config,
+                                 datamanager=trainer.datamanager, params=trainer.params,
+                                 optimizer=trainer.optimizer, step=trainer.train_step)
+
+
 def _clone_tree(tree):
     """A copy of an optimizer state dict (dicts of tensors and values)."""
     return tree_map(lambda x: x.clone() if torch.is_tensor(x) else copy.deepcopy(x), tree)
 
 
-def same_state_step(eager, graphed, split: bool, s: int, grad_rel=None) -> dict:
+def same_state_step(eager, graphed, split: bool, s: int, grad_rel=None, mesh=None) -> dict:
     """One more step of ``graphed`` (its captured step: a replay) and of
     ``eager`` (its eager step) from the same state: the captured run's
     params and Adam state, copied into the eager run's, one batch, one set
@@ -2465,9 +2659,10 @@ def same_state_step(eager, graphed, split: bool, s: int, grad_rel=None) -> dict:
     but where either run's gradient is within that bound of zero, where
     Adam may take the other sign (at most FLIP_LR_FACTOR × the group's lr
     apart); frozen leaves bit for bit → {"loss_rel", "ok", "worst",
-    "flips", "bad"}."""
+    "flips", "bad"}.  With ``mesh`` both are a rank's steps: the batch is
+    this rank's shard, the draws the global step's."""
     grad_rel = grad_rel or {"ddf_field": 5e-3}
-    batch = graphed.datamanager.next_train(s)
+    batch = mesh_mod.shard_batch(graphed.datamanager.next_train(s), mesh)
     draws = draw_step(graphed.model, graphed.pipeline, batch, torch.Generator("cuda").manual_seed(2), split)
     step = torch.full((), float(s + 1), device="cuda")
     count = graphed.optimizer.count

@@ -5,11 +5,13 @@ Entry point: runs on ``device`` (default CUDA; raises without a card unless
 
 With ``mesh`` (:func:`~neusky_torch.parallel.mesh.make_mesh`) the trainer
 is one rank of a multi-device run: every rank builds it alike (the same
-config, seed and data), the parameters are broadcast from rank 0, rank 0's
-batch is broadcast every step (though the samplers' streams, the native
-one's prefetched stream included, agree on every rank) and each rank
-trains on its shard
-(:func:`~neusky_torch.parallel.mesh.shard_batch`).  Every rank runs the
+config, seed and data), the parameters are broadcast from rank 0 once, and
+each rank draws the global batch from its own sampler (the samplers'
+streams, the native one's prefetched stream included, are the same on
+every rank) and trains on its shard of it
+(:func:`~neusky_torch.parallel.mesh.shard_batch`).  Over NCCL a rank's
+step runs as one CUDA graph replay with its collectives; over gloo
+eagerly.  Every rank runs the
 eval passes as one process does, with the model off its mesh, as every
 JAX process runs them; rank 0 alone logs, writes and saves, and its
 checkpoint resumes in one process."""
@@ -85,10 +87,10 @@ class Trainer:
         graphed: Optional[bool] = None,
     ):
         """``graphed`` as the step factories' (``parallel/mesh.py``): None
-        captures the training step as a CUDA graph on the card without a
-        mesh (and its eval passes' latent fits, renders and LPIPS the same
-        way, with or without a mesh), False runs them eagerly; True raises
-        on the CPU or with a mesh."""
+        captures the training step as a CUDA graph on the card, alone or
+        as a rank of an NCCL mesh (and its eval passes' latent fits,
+        renders and LPIPS the same way, with or without a mesh), False runs
+        them eagerly; True raises on the CPU or with a gloo mesh."""
         self.device = resolve_device(device)
         if model.device != self.device or datamanager.device != self.device:
             raise ValueError("model, datamanager and trainer must share one device")
@@ -133,7 +135,7 @@ class Trainer:
             batch = self.datamanager.next_train(self.step)
             rays_done += self._count_rays(batch)
             if self.mesh is not None:
-                batch = shard_batch(replicate(batch, self.mesh), self.mesh)
+                batch = shard_batch(batch, self.mesh)
             aux = self.train_step(self.params, batch, float(self.step), generator=self.generator)
             self.step += 1
             if self.step % self.config.steps_per_log == 0 or self.step == target:

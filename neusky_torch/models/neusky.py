@@ -336,7 +336,9 @@ class NeuSkyModel:
         ``data`` mesh axis the draws are the global batch's, given or drawn
         (every rank draws the same from the same generator state), and this
         rank keeps its rows of the per-ray ones; ``rows`` then holds the
-        global row of each of its rays."""
+        global row of each of its rays.  Draws that hold ``rows`` already
+        (this method's output, as ``pipeline.draw_step`` hands it to the
+        step) are this rank's and are not cut again."""
         c = self.config
         dev = self.device
         d = dict(draws or {})
@@ -345,7 +347,7 @@ class NeuSkyModel:
         if "proposal_jitters" not in d:
             d["proposal_jitters"] = [torch.rand((n_all, 1), generator=generator, device=dev) for _ in range(rounds)]
         d.update(self.draw_ddf_gt(d, generator, n_all))
-        if rows is not None:
+        if rows is not None and "rows" not in d:
             d["proposal_jitters"] = [j[rows] for j in d["proposal_jitters"]]
             d["proposal_stoch_u"] = [u.reshape(n_all, -1)[rows].reshape(-1) for u in d["proposal_stoch_u"]]
             d["rows"] = rows

@@ -2,7 +2,11 @@
 
 Only ``all_reduce`` and ``broadcast`` are used: the two that gloo supports
 on CUDA tensors as well as NCCL, so ranks that share one card (gloo) run
-the same code as ranks with a card each (NCCL).
+the same code as ranks with a card each (NCCL).  Over NCCL a rank's step
+runs them inside its CUDA graph (``parallel/graphs.py``): they read nothing
+on the host, the buffers they make come from the graph's pool at the
+same address every replay, and :func:`average_grads` writes the averaged
+gradient into the ``.grad`` tensors the backward filled.
 
 - :func:`gather_slots`: each rank of a group holds one contiguous slice of
   a tensor's dim 1; the whole tensor is the group's ``all_reduce`` sum of

@@ -37,6 +37,20 @@ loaded anew; an optimizer without one never moves) makes the next call
 warm up and capture again over the new state tensors.  Calls are
 serialised by a lock (the viewer renders from its server's threads).
 
+A mesh rank's step (``collectives=True``: :mod:`~neusky_torch.parallel.
+mesh` over NCCL) holds its ``all_reduce`` calls in its graph: NCCL runs
+them on a stream the capture joins.  The eager first call meets every
+communicator the step uses (NCCL makes one at its first collective, which
+a capture cannot do); the capture runs in ``"thread_local"`` mode (NCCL's
+watchdog thread queries events while this thread captures); and the ranks
+capture and replay in lockstep, since each makes the same calls in the
+same order: the same first calls, the same ``generation`` moves (every
+rank loads the checkpoint), the same structure checks.  A rank whose
+capture fails raises and never runs the step eagerly; the others then
+wait in a replayed collective, which no time limit of the process group
+watches, until ``launch.run_ranks`` stops every rank as the failed one
+exits.  Gloo's collectives run on the host and cannot be captured.
+
 K1's launch counter (``ops/hashgrid_cuda.py``) counts Python calls of its
 wrapper.  A capture records K1's launches without running them, so the
 count it made is taken back and added once per replay: the counter counts
@@ -99,14 +113,14 @@ def unflatten(spec, leaves) -> Any:
 def use_graph(graphed: Optional[bool], device: torch.device, eager_reason: Optional[str] = None) -> bool:
     """Whether a factory given ``graphed`` captures on ``device``: None
     captures on a CUDA device (unless ``eager_reason`` says why the call
-    runs eagerly there: a mesh), False runs eagerly, True captures and
-    raises on the CPU or with an ``eager_reason``."""
+    runs eagerly there: a gloo mesh), False runs eagerly, True captures and
+    raises with an ``eager_reason`` or on the CPU."""
     if graphed is None:
         return device.type == "cuda" and eager_reason is None
-    if graphed and device.type != "cuda":
-        raise ValueError(f"graphed=True needs a CUDA device, not {device}")
     if graphed and eager_reason is not None:
         raise ValueError(f"graphed=True {eager_reason}")
+    if graphed and device.type != "cuda":
+        raise ValueError(f"graphed=True needs a CUDA device, not {device}")
     return bool(graphed)
 
 
@@ -114,11 +128,13 @@ class CapturedStep:
     """``fn(params, step, *inputs)`` run as one CUDA graph replay a call;
     see the module docstring.  ``optimizer``: what ``fn`` steps (a
     ``GroupedAdam`` or a capturable ``torch.optim.Adam``), or None for a
-    forward."""
+    forward.  ``collectives``: ``fn`` runs NCCL collectives (a mesh rank's
+    step; see the module docstring)."""
 
-    def __init__(self, fn: Callable, optimizer=None):
+    def __init__(self, fn: Callable, optimizer=None, collectives: bool = False):
         self.fn = fn
         self.optimizer = optimizer
+        self.collectives = collectives
         self.capture_s: Optional[float] = None
         self.replays = 0
         self._lock = threading.Lock()
@@ -244,8 +260,12 @@ class CapturedStep:
         # dead reference cycle would stay reserved, and a capture short of
         # memory fails
         gc.collect()
+        # NCCL's watchdog thread queries the events of the collectives it
+        # tracks; under the default "global" mode a query from another
+        # thread while this one captures invalidates the capture
+        mode = "thread_local" if self.collectives else "global"
         try:
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, capture_error_mode=mode):
                 out = self.fn(self._static_params, self._step, *self._static_inputs)
         except Exception as e:
             torch.cuda.set_stream(stream)  # a failed capture_end leaves the capture stream current

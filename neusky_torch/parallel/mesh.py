@@ -33,10 +33,13 @@ donated buffers: True runs the step as one CUDA graph replay a call
 (:class:`~neusky_torch.parallel.graphs.CapturedStep`: the draws made
 eagerly by :func:`~neusky_torch.models.pipeline.draw_step` and copied in,
 the params updated in place), False eagerly, op by op from Python, and
-None (the default) captures on a CUDA device without a mesh and runs
-eagerly elsewhere.  ``graphed=True`` on the CPU or with a mesh raises (gloo
-collectives cannot be captured), and so does a graphed step given other
-params or inputs of another structure than its first call's.
+None (the default) captures on a CUDA device and runs eagerly elsewhere
+(:func:`_graphed`).  A rank of a mesh over NCCL captures its step with
+its collectives, as JAX compiles one program per device; over gloo the
+mesh step runs eagerly (gloo's collectives run on the host and cannot be
+captured).  ``graphed=True`` on the CPU or with a gloo mesh raises, and so
+does a graphed step given other params or inputs of another structure
+than its first call's.
 """
 
 from __future__ import annotations
@@ -175,18 +178,30 @@ def _finish(params, mesh, total, loss_dict):
     return scalars.pop("total_loss"), scalars
 
 
-def _graphed(graphed: Optional[bool], model: NeuSkyModel, mesh) -> bool:
-    """Whether a step factory captures (see the module docstring)."""
-    on_mesh = mesh is not None or model.mesh is not None
-    return use_graph(graphed, model.device, "with a mesh: the mesh step runs eagerly (its collectives are not "
-                     "captured)" if on_mesh else None)
+def _backend(model: NeuSkyModel, mesh) -> Optional[str]:
+    """The backend of the process group a step's collectives run on (on
+    the factory's mesh, else the model's: :func:`make_mesh` spans the
+    default group), or None without a mesh."""
+    return None if mesh is None and model.mesh is None else dist.get_backend()
 
 
-def _graph_train_step(step_fn, model, pipeline_config, optimizer, split: bool) -> Callable:
+def _graphed(graphed: Optional[bool], device: torch.device, backend: Optional[str]) -> bool:
+    """Whether a step factory given ``graphed`` captures its step on
+    ``device`` as a rank of a mesh over ``backend`` (None: no mesh): None
+    captures on a CUDA device alone or over NCCL, False never, True
+    always, and raises on the CPU or over another backend than NCCL."""
+    eager = None if backend in (None, "nccl") else (
+        f"with a {backend} mesh: {backend}'s collectives run on the host and cannot be captured in a CUDA graph, "
+        "so its mesh step runs eagerly")
+    return use_graph(graphed, device, eager)
+
+
+def _graph_train_step(step_fn, model, pipeline_config, optimizer, split: bool, collectives: bool) -> Callable:
     """``step_fn`` captured: each call makes the step's draws eagerly
-    (:func:`draw_step`), then replays; ``.captured`` is the
-    :class:`CapturedStep`."""
-    captured = CapturedStep(lambda params, step, batch, draws: step_fn(params, batch, step, draws), optimizer)
+    (:func:`draw_step`: on a ``data`` axis the global draws, cut to this
+    rank's rows), then replays; ``.captured`` is the :class:`CapturedStep`."""
+    captured = CapturedStep(lambda params, step, batch, draws: step_fn(params, batch, step, draws), optimizer,
+                            collectives=collectives)
 
     def graphed_step(params, batch, step, draws: Optional[dict] = None, generator: Optional[torch.Generator] = None):
         return captured(params, step, batch, draw_step(model, pipeline_config, batch, generator, split, draws))
@@ -203,8 +218,9 @@ def make_train_step(model: NeuSkyModel, pipeline_config: PipelineConfig, optimiz
     this rank's shard (:func:`shard_batch`), ``draws`` and ``generator``
     the global step's, and the aux losses and metrics are the global
     batch's.  ``graphed``: None captures the step as a CUDA graph on the
-    card without a mesh, True asks for that (and raises on the CPU or with
-    a mesh), False runs it eagerly (module docstring)."""
+    card, alone or as a rank of an NCCL mesh, True asks for that (and
+    raises on the CPU or with a gloo mesh), False runs it eagerly
+    (:func:`_graphed`)."""
 
     def step_fn(params, batch, step, draws: Optional[dict] = None, generator: Optional[torch.Generator] = None):
         optimizer.zero_grad()
@@ -214,8 +230,9 @@ def make_train_step(model: NeuSkyModel, pipeline_config: PipelineConfig, optimiz
         optimizer.step()
         return {**aux, "loss_dict": loss_dict, "total_loss": total}
 
-    if _graphed(graphed, model, mesh):
-        return _graph_train_step(step_fn, model, pipeline_config, optimizer, split=False)
+    backend = _backend(model, mesh)
+    if _graphed(graphed, model.device, backend):
+        return _graph_train_step(step_fn, model, pipeline_config, optimizer, False, backend is not None)
     return step_fn
 
 
@@ -250,8 +267,9 @@ def make_train_step_split(model: NeuSkyModel, pipeline_config: PipelineConfig, o
         optimizer.step()
         return {"loss_dict": loss_dict, "metrics": metrics, "total_loss": total}
 
-    if _graphed(graphed, model, mesh):
-        return _graph_train_step(step_fn, model, pipeline_config, optimizer, split=True)
+    backend = _backend(model, mesh)
+    if _graphed(graphed, model.device, backend):
+        return _graph_train_step(step_fn, model, pipeline_config, optimizer, True, backend is not None)
     return step_fn
 
 
@@ -273,9 +291,11 @@ def make_eval_latent_step(model: NeuSkyModel, optimizer: GroupedAdam, mesh: Opti
         optimizer.step()
         return total
 
-    if not _graphed(graphed, model, mesh):
+    backend = _backend(model, mesh)
+    if not _graphed(graphed, model.device, backend):
         return step_fn
-    captured = CapturedStep(lambda params, step, batch, rotation: step_fn(params, batch, step, rotation), optimizer)
+    captured = CapturedStep(lambda params, step, batch, rotation: step_fn(params, batch, step, rotation), optimizer,
+                            collectives=backend is not None)
 
     def graphed_step(params, batch, step, rotation: Optional[torch.Tensor] = None):
         return captured(params, step, batch, rotation)

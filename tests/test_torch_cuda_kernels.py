@@ -377,10 +377,12 @@ def test_graphed_step_raises_where_a_capture_fails(cuda_device, monkeypatch):
 
 
 @pytest.mark.cuda
-def test_graphed_step_raises_on_a_changed_input(cuda_device):
+def test_graphed_step_raises_on_a_changed_input(cuda_device, tmp_path):
     """After its capture the step refuses a batch of another shape and other
-    params, and runs neither; ``graphed=True`` with a mesh raises and the
-    default with a mesh is eager."""
+    params, and runs neither; ``graphed=True`` with a gloo mesh raises and
+    the default with a gloo mesh is eager."""
+    import torch.distributed as dist
+
     from neusky_torch.parallel import mesh
     from neusky_torch.tree import tree_items, tree_map
 
@@ -394,10 +396,60 @@ def test_graphed_step_raises_on_a_changed_input(cuda_device):
     with pytest.raises(ValueError, match="params"):
         b.step(tree_map(lambda t: t.detach().clone(), b.params), batch, 3.0, generator=b.generator)
     assert all(torch.equal(v, kept[k]) for k, v in tree_items(b.params))
-    b.model.set_mesh(object())
-    with pytest.raises(ValueError, match="mesh"):
-        mesh.make_train_step(b.model, b.pipeline, b.optimizer, graphed=True)
-    assert not hasattr(mesh.make_train_step(b.model, b.pipeline, b.optimizer), "captured")
+    gloo = mesh.make_mesh(1, backend="gloo", rank=0, init_method=f"file://{tmp_path / 'store'}")
+    try:
+        b.model.set_mesh(gloo)
+        with pytest.raises(ValueError, match="gloo mesh"):
+            mesh.make_train_step(b.model, b.pipeline, b.optimizer, gloo, graphed=True)
+        assert not hasattr(mesh.make_train_step(b.model, b.pipeline, b.optimizer, gloo), "captured")
+    finally:
+        b.model.set_mesh(None)
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_nccl_mesh_trainer_step_captured_equals_eager(cuda_device):
+    """``Trainer(mesh=)`` on a one-rank NCCL mesh captures its step by
+    default (one graph replay a step after the eager first call and the
+    capture, its ``all_reduce`` inside) and ``graphed=False`` keeps it
+    eager: over 4 steps from one seed the losses agree within 1e-4
+    relative and K1 launches 7 a step in both (counted through the
+    replays); one more step of both from the captured trainer's state is
+    within phase 3's bounds (``chip_smoke.same_state_step``)."""
+    from pathlib import Path
+
+    from neusky_torch.parallel.launch import run_ranks
+
+    (r,) = run_ranks("torch_mesh_ranks:nccl_trainer_rank", 1, dict(steps=4), paths=(Path(__file__).parent,))
+    captured, eager = r[None], r[False]
+    assert r["replays"] == 3 and not r["eager_has_graph"]
+    assert all(abs(g - e) <= 1e-4 * abs(e) for e, g in zip(eager["losses"], captured["losses"])), r
+    assert captured["launches"] == eager["launches"] == [7] * 4
+    assert r["same_state"]["ok"] and r["same_state"]["loss_rel"] <= 1e-4, r["same_state"]
+
+
+@pytest.mark.cuda
+def test_nccl_mesh_step_capture_failure_raises(cuda_device):
+    """A one-rank NCCL mesh step that reads the host cannot be captured:
+    the rank raises (it does not run the step eagerly instead), and
+    ``run_ranks`` raises with its traceback."""
+    from pathlib import Path
+
+    from neusky_torch.parallel.launch import run_ranks
+
+    with pytest.raises(RuntimeError, match="capturing the step as a CUDA graph failed"):
+        run_ranks("torch_mesh_ranks:nccl_capture_failure_rank", 1, paths=(Path(__file__).parent,), timeout_s=300)
+
+
+@pytest.mark.cuda
+def test_gloo_dryrun_on_one_card_runs_both_sides_eagerly(cuda_device):
+    """``dryrun_multichip`` with gloo ranks sharing the card (the one-card
+    dry run): the ranks' step is eager, and so is the one-process step it
+    is held to, one call each (no replays), the losses within 1e-3."""
+    from neusky_torch.parallel.dryrun import LOSS_RTOL, dryrun_multichip
+
+    out = dryrun_multichip(2, device="cuda", backend="gloo")
+    assert out["replays"] == 0 and out["rel_err"] < LOSS_RTOL, out
 
 
 @pytest.mark.cuda

@@ -17,7 +17,10 @@ compiled once per mesh.
 
 Then: the ``dirs`` split of ``compute_visibility`` against the unsplit one
 (outputs, points queried per rank, gradients averaged over the ranks, and
-a slice-only gather backward that the gradient check must catch); params
+a slice-only gather backward that the gradient check must catch); the
+draws ``draw_step`` makes on a mesh, fed to the mesh step, against the step
+drawing them itself (fused and split, with and without the fused
+ground-truth pass) and, from JAX's draws, against JAX's loss; params
 bitwise equal on every rank after two steps; ``Trainer(mesh=)`` on 2 ranks
 (replicated init, a checkpoint that resumes in one process bit for bit);
 ``dryrun_multichip(4)`` on the CPU; the batch rule.
@@ -105,6 +108,15 @@ def _variants(cfg_j):
     return {"fused_gt": dataclasses.replace(cfg, fused_ddf_gt_pass=True), "split": cfg, "eval_latent": cfg}
 
 
+def _drawn_kinds(cfg_j):
+    """The steps whose draws ``draw_step`` makes on a mesh: fused and
+    split, each without and with the fused ground-truth pass (which the
+    split step never runs, but ``draw_step`` is given the config)."""
+    cfg = to_torch_config(cfg_j)
+    gt = dataclasses.replace(cfg, fused_ddf_gt_pass=True)
+    return {"fused": ("fused", cfg), "fused_gt": ("fused", gt), "split": ("split", cfg), "split_gt": ("split", gt)}
+
+
 @functools.lru_cache(maxsize=None)
 def _params_j():
     """JAX's params of :func:`mesh_config` (seed 0) with seeded noise on the
@@ -135,13 +147,20 @@ def _mesh_step(name):
     n = tb["pixel_coords"].shape[0]
     draws = jax_scene_draws(cfg_j, rng, n)
     draws["ddf"] = jax_ddf_draws(cfg_j, PIPE, rng)
-    with ThreadPoolExecutor(1) as pool:  # the ranks run while JAX compiles
+    dirs = shape[1] if len(shape) == 2 else 1
+    with ThreadPoolExecutor(2) as pool:  # the ranks run while JAX compiles
         ranks = pool.submit(
             run_ranks, "torch_mesh_ranks:step_rank", int(np.prod(shape)),
-            dict(dirs=shape[1] if len(shape) == 2 else 1, cfg=to_torch_config(cfg_j), pipe=to_torch_config(PIPE),
+            dict(dirs=dirs, cfg=to_torch_config(cfg_j), pipe=to_torch_config(PIPE),
                  params_np=flat_jax(params_j), batch=tb, draws=draws, step=STEP,
                  vis=_vis_inputs() if name == "2x2" else None,
                  variants=_variants(cfg_j) if name == "data2" else None),
+            paths=(TESTS,))
+        # kept as a future: a failure fails the draws' tests alone
+        drawn = pool.submit(
+            run_ranks, "torch_mesh_ranks:drawn_rank", int(np.prod(shape)),
+            dict(dirs=dirs, kinds=_drawn_kinds(cfg_j), pipe=to_torch_config(PIPE), params_np=flat_jax(params_j),
+                 batch=tb, step=STEP, jax_draws=draws, jax_kind="fused"),
             paths=(TESTS,))
         opt = _keep_grads()
         step_fn = j_make_train_step(jm, PIPE, opt, mesh=mesh, donate=False)
@@ -150,7 +169,7 @@ def _mesh_step(name):
                                     j_shard_batch(jb, mesh), jax.device_put(rng, repl),
                                     jax.device_put(jnp.asarray(STEP, jnp.float32), repl))
         ranks = ranks.result()
-    return dict(name=name, shape=shape, n=n, aux_j=aux_j, grads_j=flat_jax(grads_j), ranks=ranks)
+    return dict(name=name, shape=shape, n=n, aux_j=aux_j, grads_j=flat_jax(grads_j), ranks=ranks, drawn=drawn)
 
 
 @pytest.fixture(scope="module", params=list(MESHES))
@@ -231,6 +250,25 @@ def test_other_mesh_steps_match_one_process(kind, batch_pair):
             assert max_rel_err(got["grads"][k], g) < GRAD_REL, k
     for k, p in want["params"].items():
         np.testing.assert_allclose(got["params"][k], p, rtol=0, atol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("kind", ["fused", "fused_gt", "split", "split_gt"])
+def test_draw_steps_draws_feed_the_mesh_step_bit_for_bit(mesh_step, kind):
+    """On every rank the mesh step given ``draw_step``'s draws (the global
+    draws, cut to the rank's rows: what a captured rank step is fed)
+    computes, bit for bit, what it computes drawing from the same generator
+    state itself: every loss term, metric and the params after it."""
+    for rank, r in enumerate(mesh_step["drawn"].result()):
+        assert r[(kind, "fed")] == r[(kind, "self")], rank
+
+
+def test_draw_steps_completion_of_jaxs_draws_gives_jaxs_mesh_loss(mesh_step):
+    """JAX's global draws, completed and cut by ``draw_step`` and fed to the
+    mesh step, give JAX's ``make_train_step(mesh=)`` total loss on every
+    rank."""
+    want = float(mesh_step["aux_j"]["total_loss"])
+    for r in mesh_step["drawn"].result():
+        np.testing.assert_allclose(r[("jax", "fed")]["total_loss"], want, rtol=LOSS_RTOL)
 
 
 def test_params_bitwise_equal_on_every_rank_after_two_steps(mesh_step):

@@ -14,6 +14,7 @@ from neusky_torch.convert import convert_params
 from neusky_torch.engine.optimizers import GroupedAdam, OptimizerGroupConfig, build_eval_latent_optimizer
 from neusky_torch.engine.trainer import Trainer, TrainerConfig
 from neusky_torch.models.neusky import NeuSkyModel
+from neusky_torch.models.pipeline import draw_step
 from neusky_torch.parallel import collectives
 from neusky_torch.parallel.mesh import (
     make_eval_latent_step,
@@ -57,6 +58,44 @@ def variant_step(kind, cfg, pipe, params_np, batch, mesh, step):
         loss = aux["total_loss"]
     return {"total_loss": float(loss), "grads": grads_of(params), "digest": tree_digest(params),
             "params": {k: t.detach().numpy().copy() for k, t in tree_items(params)}}
+
+
+def _outcome(aux, params) -> dict:
+    """A step's losses, metrics and params digest, for bitwise comparison."""
+    return {"total_loss": float(aux["total_loss"]), "loss_dict": {k: float(v) for k, v in aux["loss_dict"].items()},
+            "metrics": {k: float(v) for k, v in aux["metrics"].items()}, "digest": tree_digest(params)}
+
+
+def drawn_rank(rank, world_size, init_method, dirs, kinds, pipe, params_np, batch, step, jax_draws, jax_kind):
+    """For each ``kinds`` entry (name → (step kind, cfg): ``"fused"``
+    through ``make_train_step``, ``"split"`` through
+    ``make_train_step_split``), one mesh step from ``params_np`` fed the
+    draws that ``draw_step`` makes from a generator seeded 9, and one that
+    draws from a generator seeded 9 itself → {(name, "fed" or "self"):
+    :func:`_outcome`}; then the step of ``jax_kind`` fed ``draw_step``'s
+    completion of JAX's global draws → ``("jax", "fed")``."""
+    torch.set_num_threads(1)
+    mesh = make_mesh(world_size, dirs, backend="gloo", rank=rank, init_method=init_method)
+    local = shard_batch(batch, mesh)
+
+    def one(name, fed, draws=None):
+        kind, cfg = kinds[name]
+        split = kind == "split"
+        model = NeuSkyModel(cfg, device="cpu").set_mesh(mesh)
+        params = convert_params(params_np, device="cpu")
+        step_fn = (make_train_step_split if split else make_train_step)(model, pipe, _adam(params), mesh)
+        gen = None if draws is not None else torch.Generator().manual_seed(9)
+        if fed:
+            aux = step_fn(params, local, step, draw_step(model, pipe, local, gen, split, draws))
+        else:
+            aux = step_fn(params, local, step, generator=gen)
+        return _outcome(aux, params)
+
+    out = {}
+    for name in kinds:
+        out[(name, "fed")], out[(name, "self")] = one(name, True), one(name, False)
+    out[("jax", "fed")] = one(jax_kind, True, jax_draws)
+    return out
 
 
 def step_rank(rank, world_size, init_method, dirs, cfg, pipe, params_np, batch, draws, step, vis=None,
@@ -240,3 +279,105 @@ def eval_rank(rank, world_size, init_method, dirs, cfg, pipe, scene, eval_scene)
     history = trainer.run(1)
     (params_in, fitted), = fits
     return {"history": history, "eval_latents": fitted, "params_in": params_in if rank == 0 else None}
+
+
+def batch_stream_rank(rank, world_size, init_method, cfg, pipe, scene, native, broadcast, steps):
+    """``Trainer(mesh=)`` on a ``data`` mesh for ``steps`` steps, its
+    sampler the C++ one (``native``) or numpy's; with ``broadcast`` each
+    step's batch is rank 0's, broadcast to every rank before the trainer
+    shards it, as the trainer once did → the digest of every step's global
+    batch, the records without their wall-clock rate, the params' digest."""
+    from neusky_torch.data.datamanager import DataManager, DataManagerConfig
+    from neusky_torch.data.pixel_sampler import PixelSamplerConfig
+
+    torch.set_num_threads(1)
+    mesh = make_mesh(world_size, 1, backend="gloo", rank=rank, init_method=init_method)
+    dm = DataManager(DataManagerConfig(pixel_sampler=PixelSamplerConfig(2, 16), num_sky_rays=8,
+                                       use_native_sampler=native, native_queue_depth=2),
+                     scene["cameras"], scene["images"], scene["masks"], device="cpu")
+    trainer = Trainer(TrainerConfig(max_num_iterations=100, steps_per_log=1, steps_per_save=1000,
+                                    steps_per_eval_image=1000, seed=0),
+                      NeuSkyModel(cfg, device="cpu"), pipe, dm, device="cpu", mesh=mesh)
+    batches = []
+    next_train = dm.next_train
+
+    def recorded(step):
+        batch = next_train(step)
+        if broadcast:
+            batch = replicate(batch, mesh)
+        batches.append(tree_digest({k: v for k, v in batch.items() if torch.is_tensor(v)}))
+        return batch
+
+    dm.next_train = recorded
+    history = trainer.run(steps)
+    return {"batches": batches, "digest": tree_digest(trainer.params),
+            "history": [{k: v for k, v in h.items() if k != "rays_per_sec"} for h in history]}
+
+
+def _tiny_trainer(device, mesh, graphed):
+    """``Trainer(mesh=)`` of the tiny joint config on 2 synthetic images (2
+    × 16 rays, 2 × 16 vMF rays, 8 sky rays a step), seed 0."""
+    from neusky_torch.configs.tiny_config import tiny_model_config
+    from neusky_torch.data.datamanager import DataManager, DataManagerConfig
+    from neusky_torch.data.pixel_sampler import PixelSamplerConfig
+    from neusky_torch.data.synthetic import SyntheticSceneConfig, generate_synthetic_scene
+    from neusky_torch.models.pipeline import PipelineConfig
+    from neusky_torch.sampling.ddf_sampler import DDFSamplerConfig
+
+    pipe = PipelineConfig(visibility_train_sampler=DDFSamplerConfig(num_samples_on_sphere=2, num_rays_per_sample=16),
+                          num_sky_rays=8)
+    scene = generate_synthetic_scene(SyntheticSceneConfig(num_cameras=2, width=32, height=32))
+    dm = DataManager(DataManagerConfig(pixel_sampler=PixelSamplerConfig(2, 16), num_sky_rays=8),
+                     scene["cameras"], scene["images"], scene["masks"], device=device)
+    return Trainer(TrainerConfig(max_num_iterations=100, steps_per_log=1, steps_per_save=1000,
+                                 steps_per_eval_image=1000, seed=0),
+                   NeuSkyModel(tiny_model_config(2, 2), device=device), pipe, dm, device=device, mesh=mesh,
+                   graphed=graphed)
+
+
+def nccl_trainer_rank(rank, world_size, init_method, steps):
+    """On the card, a one-rank NCCL mesh: ``Trainer(mesh=)`` captured (the
+    default) and eager (``graphed=False``) for ``steps`` steps each from
+    one seed → their losses and K1 launches a step, the captured step's
+    replays; then one more step of both from the captured trainer's state
+    (``chip_smoke.same_state_step``)."""
+    import chip_smoke
+    from neusky_torch.ops import hashgrid_cuda as k1
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = f"cuda:{rank}"
+    mesh = make_mesh(world_size, 1, backend="nccl", rank=rank, init_method=init_method, device=dev)
+    out = {}
+    trainers = {}
+    for graphed in (None, False):
+        t = trainers[graphed] = _tiny_trainer(dev, mesh, graphed)
+        losses, launches = [], []
+        for _ in range(steps):
+            before = k1.launches[k1.KERNEL_NAME]
+            losses.append(t.run(1)[-1]["total_loss"])
+            launches.append(k1.launches[k1.KERNEL_NAME] - before)
+        out[graphed] = {"losses": losses, "launches": launches}
+    captured = trainers[None].train_step.captured
+    out["replays"], out["eager_has_graph"] = captured.replays, hasattr(trainers[False].train_step, "captured")
+    out["same_state"] = chip_smoke.same_state_step(chip_smoke.trainer_as_bench(trainers[False]),
+                                                   chip_smoke.trainer_as_bench(trainers[None]), False, steps,
+                                                   mesh=mesh)
+    return out
+
+
+def nccl_capture_failure_rank(rank, world_size, init_method):
+    """On the card, a one-rank NCCL mesh whose step reads the host
+    (``.item()``): its eager first call runs, its capture raises."""
+    from neusky_torch.parallel import mesh as t_mesh
+
+    real = t_mesh.train_loss_fn
+
+    def syncing(*a, **k):
+        total, aux = real(*a, **k)
+        return total + 0.0 * total.item(), aux
+
+    t_mesh.train_loss_fn = syncing
+    dev = f"cuda:{rank}"
+    mesh = make_mesh(world_size, 1, backend="nccl", rank=rank, init_method=init_method, device=dev)
+    trainer = _tiny_trainer(dev, mesh, True)
+    trainer.run(2)
