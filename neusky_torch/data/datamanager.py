@@ -19,6 +19,7 @@ from neusky_torch.core.rays import RayBundle
 from neusky_torch.data.native_sampler import NativeBatchSampler
 from neusky_torch.data.pixel_sampler import PixelSampler, PixelSamplerConfig
 from neusky_torch.device import resolve_device
+from neusky_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,14 +96,17 @@ class DataManager:
 
     def next_train(self, step: int = 0) -> Dict:
         """Scene batch + sky-ray pixels, on the device."""
-        if self._native is not None:
-            batch, sky = self._native_batch()
-        else:
-            batch = self.train_sampler.sample_batch()
-            sky = self.train_sampler.sample_sky_rays(self.config.num_sky_rays)
-        if sky is not None:
-            batch["sky_cam_idx"], batch["sky_pixel_coords"] = sky
-        return batch_to_device(batch, self.train_cameras, self.device)
+        with span("data.next_train"):
+            with span("data.sample"):
+                if self._native is not None:
+                    batch, sky = self._native_batch()
+                else:
+                    batch = self.train_sampler.sample_batch()
+                    sky = self.train_sampler.sample_sky_rays(self.config.num_sky_rays)
+                if sky is not None:
+                    batch["sky_cam_idx"], batch["sky_pixel_coords"] = sky
+            with span("data.to_device"):
+                return batch_to_device(batch, self.train_cameras, self.device)
 
     def _native_pixel_coords(self, pixels: np.ndarray) -> np.ndarray:
         w = self._native.width

@@ -48,6 +48,8 @@ from neusky_torch.models.pipeline import eval_latent_loss_fn
 from neusky_torch.parallel.graphs import CapturedStep, use_graph
 from neusky_torch.parallel.mesh import make_eval_latent_step
 from neusky_torch.tree import tree_map
+from neusky_torch.utils import profiling
+from neusky_torch.utils.profiling import span
 
 RENDER_KEYS = ("rgb", "albedo", "accumulation", "depth", "p2p_dist", "normal")
 
@@ -69,7 +71,7 @@ def render_chunk(model: NeuSkyModel, params, ray_bundle: RayBundle, image_indice
     rotates the sky) → :data:`RENDER_KEYS`, under :func:`eval_grad_mode`.
     Builds no tensor from host data and reads nothing on the host, so it
     can be captured."""
-    with eval_grad_mode(model):
+    with eval_grad_mode(model), span("render", model.device):
         out = model.forward(
             params, ray_bundle, image_indices,
             torch.zeros((ray_bundle.num_rays,), dtype=torch.long, device=ray_bundle.origins.device),
@@ -110,16 +112,17 @@ def make_render_chunk_fn(model: NeuSkyModel, chunk_size: int = 4096,
     model_ref = weakref.ref(model)
 
     def chunk_fn(params, ray_bundle: RayBundle, image_idx, rotation: Optional[torch.Tensor] = None):
-        dev = ray_bundle.origins.device
-        idx = image_idx if isinstance(image_idx, torch.Tensor) else torch.tensor([image_idx], device=dev)
-        if not captured:
-            return render_chunk(model, params, ray_bundle, idx, rotation)
-        if ray_bundle.num_rays != chunk_size:
-            raise ValueError(f"a captured render chunk takes {chunk_size} rays, not {ray_bundle.num_rays}")
-        rotated = rotation is not None
-        if rotated not in graphs:
-            graphs[rotated] = CapturedStep(lambda p, _, rb, i, r: render_chunk(model_ref(), p, rb, i, r))
-        return graphs[rotated](params, None, ray_bundle, idx, rotation)
+        with span("render.chunk"):
+            dev = ray_bundle.origins.device
+            idx = image_idx if isinstance(image_idx, torch.Tensor) else torch.tensor([image_idx], device=dev)
+            if not captured:
+                return render_chunk(model, params, ray_bundle, idx, rotation)
+            if ray_bundle.num_rays != chunk_size:
+                raise ValueError(f"a captured render chunk takes {chunk_size} rays, not {ray_bundle.num_rays}")
+            rotated = rotation is not None
+            if rotated not in graphs:
+                graphs[rotated] = CapturedStep(lambda p, _, rb, i, r: render_chunk(model_ref(), p, rb, i, r))
+            return graphs[rotated](params, None, ray_bundle, idx, rotation)
 
     chunk_fn.captured = graphs
     return chunk_fn, chunk_size
@@ -160,7 +163,10 @@ def render_camera(
     idx = torch.tensor([image_idx], device=camera_ray_bundle.origins.device)
     outs = [chunk_fn(params, padded.slice(s, chunk_size), idx, rotation)
             for s in range(0, padded.num_rays, chunk_size)]
-    return {k: torch.cat([o[k] for o in outs], dim=0)[:n].cpu().numpy() for k in outs[0]}
+    with span("render.to_host"):
+        maps = {k: torch.cat([o[k] for o in outs], dim=0)[:n].cpu().numpy() for k in outs[0]}
+    profiling.collect()
+    return maps
 
 
 def _eval_fit_params(params, init_latent):

@@ -40,6 +40,8 @@ from neusky_torch.parallel.mesh import (
     replicate,
     shard_batch,
 )
+from neusky_torch.utils import profiling
+from neusky_torch.utils.profiling import span
 
 
 def count_rays(model: NeuSkyModel, pipeline_config: PipelineConfig, batch) -> int:
@@ -91,26 +93,31 @@ class Trainer:
         as a rank of an NCCL mesh (and its eval passes' latent fits,
         renders and LPIPS the same way, with or without a mesh), False runs
         them eagerly; True raises on the CPU or with a gloo mesh."""
-        self.device = resolve_device(device)
-        if model.device != self.device or datamanager.device != self.device:
-            raise ValueError("model, datamanager and trainer must share one device")
-        self.config = config
-        self.model = model
-        self.pipeline_config = pipeline_config
-        self.datamanager = datamanager
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(config.seed)
-        self.params = model.init(self.generator)
-        self.params = load_illumination_prior(self.params, model.config)
-        self.mesh = mesh
-        self.is_main = mesh is None or dist.get_rank() == 0
-        if mesh is not None:
-            model.set_mesh(mesh)
-            self.params = replicate(self.params, mesh)
-        groups = optimizer_groups or opt_mod.default_neusky_optimizer_groups(config.max_num_iterations)
-        self.optimizer = opt_mod.GroupedAdam(self.params, groups)
-        make_step = make_train_step_split if config.use_split_step else make_train_step
-        self.train_step = make_step(model, pipeline_config, self.optimizer, mesh, graphed)
+        with span("trainer.init"):
+            self.device = resolve_device(device)
+            if model.device != self.device or datamanager.device != self.device:
+                raise ValueError("model, datamanager and trainer must share one device")
+            self.config = config
+            self.model = model
+            self.pipeline_config = pipeline_config
+            self.datamanager = datamanager
+            self.generator = torch.Generator(device=self.device)
+            self.generator.manual_seed(config.seed)
+            with span("model.init"):
+                self.params = model.init(self.generator)
+            with span("prior.load"):
+                self.params = load_illumination_prior(self.params, model.config)
+            self.mesh = mesh
+            self.is_main = mesh is None or dist.get_rank() == 0
+            if mesh is not None:
+                model.set_mesh(mesh)
+                self.params = replicate(self.params, mesh)
+            groups = optimizer_groups or opt_mod.default_neusky_optimizer_groups(config.max_num_iterations)
+            with span("optimizer.build"):
+                self.optimizer = opt_mod.GroupedAdam(self.params, groups)
+            make_step = make_train_step_split if config.use_split_step else make_train_step
+            with span("step.build"):
+                self.train_step = make_step(model, pipeline_config, self.optimizer, mesh, graphed)
         self.graphed = graphed
         self.step = 0
         self.history: list = []
@@ -127,36 +134,42 @@ class Trainer:
         """Run ``num_steps`` steps (default: to the configured maximum):
         log every ``steps_per_log`` steps and at the last, run an eval pass
         every ``steps_per_eval_image`` steps when there is an eval split,
-        and save every ``steps_per_save`` steps."""
+        and save every ``steps_per_save`` steps.  A log record's
+        ``rays_per_sec`` counts the rays and the time since the previous
+        record of this call (its first, since the call began)."""
         target = self.step + (num_steps or self.config.max_num_iterations)
         t_start = time.perf_counter()
         rays_done = 0
         while self.step < target:
-            batch = self.datamanager.next_train(self.step)
-            rays_done += self._count_rays(batch)
-            if self.mesh is not None:
-                batch = shard_batch(batch, self.mesh)
-            aux = self.train_step(self.params, batch, float(self.step), generator=self.generator)
-            self.step += 1
-            if self.step % self.config.steps_per_log == 0 or self.step == target:
-                total = float(aux["total_loss"])  # waits for the device
-                dt = time.perf_counter() - t_start
-                record = {
-                    "step": self.step,
-                    "total_loss": total,
-                    "rays_per_sec": rays_done / max(dt, 1e-9),
-                    **{k: float(v) for k, v in aux["metrics"].items()},
-                    **{k: float(v) for k, v in aux["loss_dict"].items()},
-                }
-                self.history.append(record)
-                if log_fn and self.is_main:
-                    log_fn(record)
-                if self.writer is not None and self.is_main:
-                    self.writer.write_scalars(self.step, record)
-            if self.step % self.config.steps_per_eval_image == 0 and self.datamanager.num_eval > 0:
-                self._eval_image_pass()
-            if self.step % self.config.steps_per_save == 0:
-                self.save()
+            with span("trainer.step"):
+                batch = self.datamanager.next_train(self.step)
+                rays_done += self._count_rays(batch)
+                if self.mesh is not None:
+                    batch = shard_batch(batch, self.mesh)
+                aux = self.train_step(self.params, batch, float(self.step), generator=self.generator)
+                self.step += 1
+                if self.step % self.config.steps_per_log == 0 or self.step == target:
+                    with span("trainer.log"):
+                        total = float(aux["total_loss"])  # waits for the device
+                        profiling.collect()
+                        now = time.perf_counter()
+                        record = {
+                            "step": self.step,
+                            "total_loss": total,
+                            "rays_per_sec": rays_done / max(now - t_start, 1e-9),
+                            **{k: float(v) for k, v in aux["metrics"].items()},
+                            **{k: float(v) for k, v in aux["loss_dict"].items()},
+                        }
+                        t_start, rays_done = now, 0
+                        self.history.append(record)
+                        if log_fn and self.is_main:
+                            log_fn(record)
+                        if self.writer is not None and self.is_main:
+                            self.writer.write_scalars(self.step, record)
+                if self.step % self.config.steps_per_eval_image == 0 and self.datamanager.num_eval > 0:
+                    self._eval_image_pass()
+                if self.step % self.config.steps_per_save == 0:
+                    self.save()
         return self.history
 
     def _eval_image_pass(self):

@@ -74,6 +74,7 @@ from neusky_torch.sampling.illumination import IcosahedronSampler
 from neusky_torch.sampling.proposal import ProposalSamplerConfig, proposal_sample
 from neusky_torch.shading.lambertian import blinn_phong_composite, lambertian_composite
 from neusky_torch.tree import tree_map
+from neusky_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -704,18 +705,20 @@ class NeuSkyModel:
         r is the ray's global row, ``draws["rows"]``, on a ``data`` mesh
         axis, else its index."""
         c = self.config
-        rs, weights_list, samples_list = proposal_sample(
-            rb, self.density_fns(params, draws.get("proposal_stoch_u")),
-            c.proposal, train=train, step=step, jitters=draws.get("proposal_jitters"),
-            generator=generator,
-        )
-        salt = self._field_salt(draws.get("sdf_salt"))
-        if salt is not None:
-            s = rs.num_samples
-            rows = draws["rows"] if "rows" in draws else torch.arange(rb.num_rays, device=self.device)
-            salt = salt_with_lanes(salt, (rows[:, None] * s + torch.arange(s, device=self.device)[None]).reshape(-1))
-        field_out = self.field.field_outputs(params["fields"], rs, True, c.cos_anneal_ratio, salt)
-        weights, trans = weights_and_transmittance_from_alphas(field_out["alpha"])
+        with span("field"):
+            rs, weights_list, samples_list = proposal_sample(
+                rb, self.density_fns(params, draws.get("proposal_stoch_u")),
+                c.proposal, train=train, step=step, jitters=draws.get("proposal_jitters"),
+                generator=generator,
+            )
+            salt = self._field_salt(draws.get("sdf_salt"))
+            if salt is not None:
+                s = rs.num_samples
+                rows = draws["rows"] if "rows" in draws else torch.arange(rb.num_rays, device=self.device)
+                salt = salt_with_lanes(
+                    salt, (rows[:, None] * s + torch.arange(s, device=self.device)[None]).reshape(-1))
+            field_out = self.field.field_outputs(params["fields"], rs, True, c.cos_anneal_ratio, salt)
+            weights, trans = weights_and_transmittance_from_alphas(field_out["alpha"])
         return rs, weights_list, samples_list, field_out, weights, trans
 
     def _compose_outputs(self, params, rb, rs, field_out, weights, trans, weights_list, samples_list,
@@ -727,63 +730,68 @@ class NeuSkyModel:
         bg_transmittance = trans[:, -1, :]
         weights_list = weights_list + [weights]
         samples_list = samples_list + [rs]
-        illum_dirs, hdr_light, hdr_background = self.sample_illumination(
-            params, rb, image_indices, ray_image_idx, train, draws.get("light_rotation"), generator,
-            fitting_eval_latents=fitting_eval_latents, rotation=rotation,
-        )
+        with span("sky"):
+            illum_dirs, hdr_light, hdr_background = self.sample_illumination(
+                params, rb, image_indices, ray_image_idx, train, draws.get("light_rotation"), generator,
+                fitting_eval_latents=fitting_eval_latents, rotation=rotation,
+            )
         p2p = render_depth(weights, rs)
         accumulation = render_accumulation(weights)
         vis_dict = None
         if c.use_visibility and self.ddf is not None:
             stop_depth = c.sdf_to_visibility_stop_gradients in ("depth", "both")
             stop_sdf = c.sdf_to_visibility_stop_gradients in ("sdf", "both")
-            thr, sig_scale = self._visibility_threshold(params, step)
-            vis_dict = self.compute_visibility(
-                params, rs, p2p.detach() if stop_depth else p2p, illum_dirs, thr, sig_scale,
-                stop_sdf_gradients=stop_sdf,
-                compute_sdf_at_termination=train and c.losses.sdf_level_set_visibility,
-                stoch_salt=self._field_salt(draws.get("sdf_salt")), ray_rows=draws.get("rows"),
-            )
-        visibility = vis_dict["visibility"] if vis_dict is not None else None
-        if "shininess" in field_out:
-            rgb = blinn_phong_composite(
-                field_out["albedo"], field_out["normal"], illum_dirs, hdr_light, visibility, hdr_background,
-                weights, field_out["shininess"], -rb.directions, clip_output=not train,
-            )
-        else:
-            rgb = lambertian_composite(
-                field_out["albedo"], field_out["normal"], illum_dirs, hdr_light, visibility, hdr_background,
-                weights, clip_output=not train,
-            )
-        normal = render_normal(weights, field_out["normal"])
-        outputs = {
-            "rgb": rgb,
-            "albedo": render_rgb_with_background(weights, field_out["albedo"], torch.ones(3, device=rgb.device)),
-            "accumulation": accumulation,
-            "depth": p2p / rb.directions_norm,
-            "p2p_dist": p2p,
-            "normal": normal,
-            "normal_vis": (normal + 1.0) / 2.0,
-            "weights": weights,
-            "hdr_background_colours": hdr_background,
-            "directions_norm": rb.directions_norm,
-            "bg_transmittance": bg_transmittance,
-            "eik_grad": field_out["gradient"],
-            "weights_list": weights_list,
-            "samples_list": samples_list,
-        }
-        if "rows" in draws:
-            outputs["ray_rows"] = draws["rows"][:rb.num_rays]
-        if vis_dict is not None:
-            outputs["visibility"] = vis_dict["visibility"]
-            if "sdf_at_termination" in vis_dict:
-                outputs["sdf_at_termination"] = vis_dict["sdf_at_termination"]
-        for i in range(len(weights_list) - 1):
-            outputs[f"prop_depth_{i}"] = render_depth(weights_list[i], samples_list[i])
+            with span("visibility"):
+                thr, sig_scale = self._visibility_threshold(params, step)
+                vis_dict = self.compute_visibility(
+                    params, rs, p2p.detach() if stop_depth else p2p, illum_dirs, thr, sig_scale,
+                    stop_sdf_gradients=stop_sdf,
+                    compute_sdf_at_termination=train and c.losses.sdf_level_set_visibility,
+                    stoch_salt=self._field_salt(draws.get("sdf_salt")), ray_rows=draws.get("rows"),
+                )
+        with span("shading"):
+            visibility = vis_dict["visibility"] if vis_dict is not None else None
+            if "shininess" in field_out:
+                rgb = blinn_phong_composite(
+                    field_out["albedo"], field_out["normal"], illum_dirs, hdr_light, visibility, hdr_background,
+                    weights, field_out["shininess"], -rb.directions, clip_output=not train,
+                )
+            else:
+                rgb = lambertian_composite(
+                    field_out["albedo"], field_out["normal"], illum_dirs, hdr_light, visibility, hdr_background,
+                    weights, clip_output=not train,
+                )
+            normal = render_normal(weights, field_out["normal"])
+            outputs = {
+                "rgb": rgb,
+                "albedo": render_rgb_with_background(weights, field_out["albedo"],
+                                                     torch.ones(3, device=rgb.device)),
+                "accumulation": accumulation,
+                "depth": p2p / rb.directions_norm,
+                "p2p_dist": p2p,
+                "normal": normal,
+                "normal_vis": (normal + 1.0) / 2.0,
+                "weights": weights,
+                "hdr_background_colours": hdr_background,
+                "directions_norm": rb.directions_norm,
+                "bg_transmittance": bg_transmittance,
+                "eik_grad": field_out["gradient"],
+                "weights_list": weights_list,
+                "samples_list": samples_list,
+            }
+            if "rows" in draws:
+                outputs["ray_rows"] = draws["rows"][:rb.num_rays]
+            if vis_dict is not None:
+                outputs["visibility"] = vis_dict["visibility"]
+                if "sdf_at_termination" in vis_dict:
+                    outputs["sdf_at_termination"] = vis_dict["sdf_at_termination"]
+            for i in range(len(weights_list) - 1):
+                outputs[f"prop_depth_{i}"] = render_depth(weights_list[i], samples_list[i])
         if train and c.losses.hashgrid_density:
-            outputs["grid_density"] = self._hashgrid_density_samples(
-                params, draws["grid_jitter"], draws["grid_dirs"], draws["grid_salt"]
-            )
+            with span("density_grid"):
+                outputs["grid_density"] = self._hashgrid_density_samples(
+                    params, draws["grid_jitter"], draws["grid_dirs"], draws["grid_salt"]
+                )
         return outputs
 
     def generate_ddf_ground_truth(

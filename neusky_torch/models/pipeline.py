@@ -36,6 +36,7 @@ from neusky_torch.core.spherical import draw_sphere_uniforms
 from neusky_torch.models.ddf_model import ddf_loss_dict, ddf_train_outputs
 from neusky_torch.models.neusky import NeuSkyModel
 from neusky_torch.sampling.ddf_sampler import DDFSamplerConfig, draw_vmf, vmf_ddf_samples
+from neusky_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,9 +76,10 @@ def _sum(loss_dict, device) -> torch.Tensor:
 
 
 def _scene_losses(model: NeuSkyModel, params, outputs, batch):
-    loss_dict = model.loss_dict(params, outputs, batch, train=True)
-    metrics = model.metrics_dict(params, outputs, batch)
-    return _sum(loss_dict, model.device), {"loss_dict": loss_dict, "metrics": metrics}
+    with span("losses"):
+        loss_dict = model.loss_dict(params, outputs, batch, train=True)
+        metrics = model.metrics_dict(params, outputs, batch)
+        return _sum(loss_dict, model.device), {"loss_dict": loss_dict, "metrics": metrics}
 
 
 def scene_loss_fn(
@@ -89,11 +91,12 @@ def scene_loss_fn(
     generator: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Scene half of the joint step: NeuSky forward + scene losses."""
-    outputs = model.forward(
-        params, batch_ray_bundle(batch), batch["image_indices"], batch["ray_image_idx"],
-        step=step, train=True, draws=draws, generator=generator,
-    )
-    return _scene_losses(model, params, outputs, batch)
+    with span("scene"):
+        outputs = model.forward(
+            params, batch_ray_bundle(batch), batch["image_indices"], batch["ray_image_idx"],
+            step=step, train=True, draws=draws, generator=generator,
+        )
+        return _scene_losses(model, params, outputs, batch)
 
 
 def draw_ddf_fit(
@@ -132,33 +135,34 @@ def ddf_fit_loss_fn(
     truth (un-annealed, no jitter), then the DDF losses and the DDF depth
     PSNR.  ``vis_bundle`` and ``gt`` from the fused pass skip the draw of
     the rays and the separate render."""
-    d = draw_ddf_fit(model, pipeline_config, draws, generator, with_gt=gt is None)
-    r = model.config.ddf_radius
-    if vis_bundle is None:
-        vis_bundle = vmf_ddf_samples(pipeline_config.visibility_train_sampler, d["vmf"], ddf_sphere_radius=r)
-    if gt is None:
-        gt = model.generate_ddf_ground_truth(
-            params, vis_bundle, mask_threshold=pipeline_config.visibility_accumulation_mask_threshold,
-            stop_gradients=pipeline_config.stop_sdf_gradients, draws=d["gt"],
+    with span("ddf_fit"):
+        d = draw_ddf_fit(model, pipeline_config, draws, generator, with_gt=gt is None)
+        r = model.config.ddf_radius
+        if vis_bundle is None:
+            vis_bundle = vmf_ddf_samples(pipeline_config.visibility_train_sampler, d["vmf"], ddf_sphere_radius=r)
+        if gt is None:
+            gt = model.generate_ddf_ground_truth(
+                params, vis_bundle, mask_threshold=pipeline_config.visibility_accumulation_mask_threshold,
+                stop_gradients=pipeline_config.stop_sdf_gradients, draws=d["gt"],
+            )
+        ddf_batch = dict(gt)
+        sky_bundle = batch_sky_bundle(batch)
+        if sky_bundle is not None:
+            ddf_batch["sky_ray_bundle"] = sky_bundle
+        field_params = params["fields"]
+        ddf_outputs = ddf_train_outputs(
+            model.ddf, params["ddf_field"], vis_bundle, ddf_batch,
+            sdf_at_pos_fn=lambda p: model.field.sdf_only(field_params, p),
+            stop_sdf_gradients=pipeline_config.stop_sdf_gradients,
+            multi_view_u=d["multi_view_u"],
         )
-    ddf_batch = dict(gt)
-    sky_bundle = batch_sky_bundle(batch)
-    if sky_bundle is not None:
-        ddf_batch["sky_ray_bundle"] = sky_bundle
-    field_params = params["fields"]
-    ddf_outputs = ddf_train_outputs(
-        model.ddf, params["ddf_field"], vis_bundle, ddf_batch,
-        sdf_at_pos_fn=lambda p: model.field.sdf_only(field_params, p),
-        stop_sdf_gradients=pipeline_config.stop_sdf_gradients,
-        multi_view_u=d["multi_view_u"],
-    )
-    vis_losses = ddf_loss_dict(model.config.ddf, ddf_outputs, ddf_batch, r)
-    m = ddf_batch["mask"].reshape(-1, 1)
-    pred_d = ddf_outputs["expected_termination_dist"].reshape(-1, 1) * m
-    gt_d = ddf_batch["termination_dist"].reshape(-1, 1) * m
-    mse = torch.mean((pred_d - gt_d) ** 2)
-    metrics = {"ddf_depth_psnr": (-10.0 * torch.log10(torch.clamp(mse / r**2, min=1e-10))).detach()}
-    return _sum(vis_losses, model.device), {"loss_dict": vis_losses, "metrics": metrics}
+        vis_losses = ddf_loss_dict(model.config.ddf, ddf_outputs, ddf_batch, r)
+        m = ddf_batch["mask"].reshape(-1, 1)
+        pred_d = ddf_outputs["expected_termination_dist"].reshape(-1, 1) * m
+        gt_d = ddf_batch["termination_dist"].reshape(-1, 1) * m
+        mse = torch.mean((pred_d - gt_d) ** 2)
+        metrics = {"ddf_depth_psnr": (-10.0 * torch.log10(torch.clamp(mse / r**2, min=1e-10))).detach()}
+        return _sum(vis_losses, model.device), {"loss_dict": vis_losses, "metrics": metrics}
 
 
 def _fused_gt_pass(model: NeuSkyModel, pipeline_config: PipelineConfig) -> bool:
@@ -217,12 +221,13 @@ def train_loss_fn(
         d = draw_ddf_fit(model, pipeline_config, ddf_draws, generator, with_gt=False)
         vis_bundle = vmf_ddf_samples(pipeline_config.visibility_train_sampler, d["vmf"],
                                      ddf_sphere_radius=model.config.ddf_radius)
-        outputs, gt = model.forward_with_ddf_gt(
-            params, batch_ray_bundle(batch), batch["image_indices"], batch["ray_image_idx"], vis_bundle,
-            step=step, train=True, draws=draws, generator=generator,
-            gt_mask_threshold=pipeline_config.visibility_accumulation_mask_threshold,
-        )
-        total, aux = _scene_losses(model, params, outputs, batch)
+        with span("scene"):
+            outputs, gt = model.forward_with_ddf_gt(
+                params, batch_ray_bundle(batch), batch["image_indices"], batch["ray_image_idx"], vis_bundle,
+                step=step, train=True, draws=draws, generator=generator,
+                gt_mask_threshold=pipeline_config.visibility_accumulation_mask_threshold,
+            )
+            total, aux = _scene_losses(model, params, outputs, batch)
         ddf_total, ddf_aux = ddf_fit_loss_fn(model, pipeline_config, params, batch, d, generator,
                                              vis_bundle=vis_bundle, gt=gt)
     else:

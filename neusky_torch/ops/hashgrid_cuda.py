@@ -12,8 +12,9 @@ L = 1 case.
 
 Dispatch rule: a CPU tensor takes the plain version (``index_add_`` on a
 zero table); a CUDA tensor launches the kernel or raises — there is no
-fallback.  ``launches`` counts kernel launches so a run can show that its
-main path went through the kernel.
+fallback.  ``launches[KERNEL_NAME]`` counts kernel launches (the port's
+counter ``hashgrid_scatter_levels``, ``utils/profiling.py``), so a run can
+show that its main path went through the kernel.
 """
 
 from __future__ import annotations
@@ -24,9 +25,11 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
+
+from neusky_torch.utils import profiling
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "hashgrid_scatter.cu"
@@ -37,7 +40,7 @@ NVCC_FLAGS = (
 )
 
 KERNEL_NAME = "hashgrid_scatter_levels"
-launches: Dict[str, int] = {KERNEL_NAME: 0}
+launches = profiling.totals  # launches[KERNEL_NAME]
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -150,7 +153,7 @@ def _run(rows, vals, out, table_size: int, vals_strides, out_strides) -> torch.T
         )
     if err != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {err}")
-    launches[KERNEL_NAME] += 1
+    profiling.count(KERNEL_NAME)
     return out
 
 

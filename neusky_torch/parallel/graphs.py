@@ -51,10 +51,15 @@ wait in a replayed collective, which no time limit of the process group
 watches, until ``launch.run_ranks`` stops every rank as the failed one
 exits.  Gloo's collectives run on the host and cannot be captured.
 
-K1's launch counter (``ops/hashgrid_cuda.py``) counts Python calls of its
-wrapper.  A capture records K1's launches without running them, so the
-count it made is taken back and added once per replay: the counter counts
-launches that ran.
+Counters (``utils/profiling.py::count``; K1's launch counter,
+``ops/hashgrid_cuda.py``, counts Python calls of its wrapper) count work
+that ran: a capture records work without running it, so the counts it made
+are taken back and made again on each replay.  ``graph.replays`` counts the
+replays.  With the port's tracing on, a call's host parts are spans
+(``graph.warmup``; ``graph.capture`` with ``graph.gc``;
+``graph.copy_inputs``; ``graph.replay``), and the device spans entered
+while ``fn`` is captured are timed on every replay: their events are read
+before the next replay where the last replay has completed.
 """
 
 from __future__ import annotations
@@ -68,8 +73,9 @@ from typing import Any, Callable, List, Optional
 
 import torch
 
-from neusky_torch.ops import hashgrid_cuda
 from neusky_torch.tree import tree_leaves
+from neusky_torch.utils import profiling
+from neusky_torch.utils.profiling import span
 
 # calls of the steps that update their params in place: a replay writes them
 # without moving their version counters, so a forward reads this count to
@@ -156,7 +162,8 @@ class CapturedStep:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self._out_spec = None
         self._out: List[torch.Tensor] = []
-        self._launches = {}
+        self._counts = {}
+        self._events: Optional[profiling.GraphEvents] = None
         self._warm = False
         self._generation = self._generation_now()
 
@@ -203,7 +210,7 @@ class CapturedStep:
         if self._generation_now() != self._generation:
             self._reset()
         start = self._n_params if self._params_seen(flat[:self._n_params]) else 0
-        with torch.no_grad():
+        with span("graph.copy_inputs"), torch.no_grad():
             for static, t in zip(self._static[start:], flat[start:]):
                 if static is not t:
                     static.copy_(t)
@@ -215,13 +222,20 @@ class CapturedStep:
             writes += 1
         if not self._warm:
             self._warm = True
-            return self._run_on_side_stream()
+            with span("graph.warmup"):
+                return self._run_on_side_stream()
         if self.graph is None:
             self._capture()
-        self.graph.replay()
-        self.replays += 1
-        for name, n in self._launches.items():
-            hashgrid_cuda.launches[name] += n
+        if self._events is not None:
+            self._events.collect()
+        with span("graph.replay"):
+            self.graph.replay()
+            self.replays += 1
+            profiling.count("graph.replays")
+            for name, n in self._counts.items():
+                profiling.count(name, n)
+            if self._events is not None:
+                self._events.replayed()
         return unflatten(self._out_spec, (t.clone() for t in self._out))
 
     def _params_seen(self, leaves: List[torch.Tensor]) -> bool:
@@ -251,28 +265,28 @@ class CapturedStep:
         return out
 
     def _capture(self) -> None:
-        before = dict(hashgrid_cuda.launches)
         stream = torch.cuda.current_stream(self._device())
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
-        # torch.cuda.graph empties the allocator's cache before it captures
-        # but no longer collects garbage: the memory pools of graphs in a
-        # dead reference cycle would stay reserved, and a capture short of
-        # memory fails
-        gc.collect()
-        # NCCL's watchdog thread queries the events of the collectives it
-        # tracks; under the default "global" mode a query from another
-        # thread while this one captures invalidates the capture
-        mode = "thread_local" if self.collectives else "global"
-        try:
-            with torch.cuda.graph(graph, capture_error_mode=mode):
-                out = self.fn(self._static_params, self._step, *self._static_inputs)
-        except Exception as e:
-            torch.cuda.set_stream(stream)  # a failed capture_end leaves the capture stream current
-            raise RuntimeError("capturing the step as a CUDA graph failed (it is not run eagerly instead)") from e
-        finally:
-            captured = {k: hashgrid_cuda.launches[k] - before.get(k, 0) for k in hashgrid_cuda.launches}
-            hashgrid_cuda.launches.update(before)
+        with span("graph.capture"):
+            # torch.cuda.graph empties the allocator's cache before it
+            # captures but no longer collects garbage: the memory pools of
+            # graphs in a dead reference cycle would stay reserved, and a
+            # capture short of memory fails
+            with span("graph.gc"):
+                gc.collect()
+            # NCCL's watchdog thread queries the events of the collectives it
+            # tracks; under the default "global" mode a query from another
+            # thread while this one captures invalidates the capture
+            mode = "thread_local" if self.collectives else "global"
+            try:
+                with profiling.counts_taken_back() as counts, profiling.capturing() as events, \
+                        torch.cuda.graph(graph, capture_error_mode=mode):
+                    out = self.fn(self._static_params, self._step, *self._static_inputs)
+            except Exception as e:
+                torch.cuda.set_stream(stream)  # a failed capture_end leaves the capture stream current
+                raise RuntimeError("capturing the step as a CUDA graph failed (it is not run eagerly instead)") from e
         self.capture_s = time.perf_counter() - t0
         self._out = []
-        self.graph, self._out_spec, self._launches = graph, flatten(out, self._out), captured
+        self.graph, self._out_spec, self._counts = graph, flatten(out, self._out), counts
+        self._events = events if events.spans else None

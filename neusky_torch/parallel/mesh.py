@@ -65,6 +65,7 @@ from neusky_torch.models.pipeline import (
 from neusky_torch.parallel.collectives import average_grads, mesh_axis
 from neusky_torch.parallel.graphs import CapturedStep, use_graph
 from neusky_torch.tree import tree_leaves
+from neusky_torch.utils.profiling import span
 
 BACKENDS = ("nccl", "gloo")
 PG_TIMEOUT_S = 600.0  # a collective waits this long for a rank that failed
@@ -204,7 +205,9 @@ def _graph_train_step(step_fn, model, pipeline_config, optimizer, split: bool, c
                             collectives=collectives)
 
     def graphed_step(params, batch, step, draws: Optional[dict] = None, generator: Optional[torch.Generator] = None):
-        return captured(params, step, batch, draw_step(model, pipeline_config, batch, generator, split, draws))
+        with span("engine.draws"):
+            draws = draw_step(model, pipeline_config, batch, generator, split, draws)
+        return captured(params, step, batch, draws)
 
     graphed_step.captured = captured
     return graphed_step
@@ -223,12 +226,15 @@ def make_train_step(model: NeuSkyModel, pipeline_config: PipelineConfig, optimiz
     (:func:`_graphed`)."""
 
     def step_fn(params, batch, step, draws: Optional[dict] = None, generator: Optional[torch.Generator] = None):
-        optimizer.zero_grad()
-        total, aux = train_loss_fn(model, pipeline_config, params, batch, step, draws, generator)
-        total.backward()
-        total, loss_dict = _finish(params, mesh, total, aux["loss_dict"])
-        optimizer.step()
-        return {**aux, "loss_dict": loss_dict, "total_loss": total}
+        with span("step", model.device):
+            optimizer.zero_grad()
+            total, aux = train_loss_fn(model, pipeline_config, params, batch, step, draws, generator)
+            with span("backward"):
+                total.backward()
+            total, loss_dict = _finish(params, mesh, total, aux["loss_dict"])
+            with span("adam"):
+                optimizer.step()
+            return {**aux, "loss_dict": loss_dict, "total_loss": total}
 
     backend = _backend(model, mesh)
     if _graphed(graphed, model.device, backend):
@@ -249,23 +255,27 @@ def make_train_step_split(model: NeuSkyModel, pipeline_config: PipelineConfig, o
     fit_ddf = model.config.fit_visibility_field and model.ddf is not None
 
     def step_fn(params, batch, step, draws: Optional[dict] = None, generator: Optional[torch.Generator] = None):
-        optimizer.zero_grad()
-        draws = dict(draws or {})
-        ddf_draws = draws.pop("ddf", None)
-        total, aux = scene_loss_fn(model, params, batch, step, draws, generator)
-        total.backward()
-        total = total.detach()
-        loss_dict = {k: v.detach() for k, v in aux["loss_dict"].items()}
-        metrics = dict(aux["metrics"])
-        if fit_ddf:
-            ddf_total, ddf_aux = ddf_fit_loss_fn(model, pipeline_config, params, batch, ddf_draws, generator)
-            ddf_total.backward()
-            total = total + ddf_total.detach()
-            loss_dict.update((k, v.detach()) for k, v in ddf_aux["loss_dict"].items())
-            metrics.update(ddf_aux["metrics"])
-        total, loss_dict = _finish(params, mesh, total, loss_dict)
-        optimizer.step()
-        return {"loss_dict": loss_dict, "metrics": metrics, "total_loss": total}
+        with span("step", model.device):
+            optimizer.zero_grad()
+            draws = dict(draws or {})
+            ddf_draws = draws.pop("ddf", None)
+            total, aux = scene_loss_fn(model, params, batch, step, draws, generator)
+            with span("backward"):
+                total.backward()
+            total = total.detach()
+            loss_dict = {k: v.detach() for k, v in aux["loss_dict"].items()}
+            metrics = dict(aux["metrics"])
+            if fit_ddf:
+                ddf_total, ddf_aux = ddf_fit_loss_fn(model, pipeline_config, params, batch, ddf_draws, generator)
+                with span("backward"):
+                    ddf_total.backward()
+                total = total + ddf_total.detach()
+                loss_dict.update((k, v.detach()) for k, v in ddf_aux["loss_dict"].items())
+                metrics.update(ddf_aux["metrics"])
+            total, loss_dict = _finish(params, mesh, total, loss_dict)
+            with span("adam"):
+                optimizer.step()
+            return {"loss_dict": loss_dict, "metrics": metrics, "total_loss": total}
 
     backend = _backend(model, mesh)
     if _graphed(graphed, model.device, backend):

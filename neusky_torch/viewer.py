@@ -22,6 +22,8 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 import torch
 
+from neusky_torch.utils.profiling import span
+
 _PAGE = """<!doctype html><html><head><title>neusky-torch viewer</title>
 <style>body{font-family:sans-serif;background:#111;color:#eee;margin:20px}
 img{image-rendering:pixelated;border:1px solid #444}
@@ -95,18 +97,19 @@ class ViewerState:
         from neusky_torch.core.cameras import Cameras, CameraType
         from neusky_torch.core.spherical import look_at_target
 
-        az, el = np.deg2rad(_q(q, "az", 0)), np.deg2rad(_q(q, "el", 20))
-        dist = _q(q, "dist", 1.2)
-        res = self.resolution
-        pos = dist * np.array([np.cos(az) * np.cos(el), np.sin(az) * np.cos(el), np.sin(el)])
-        c2w = look_at_target(pos[None], np.zeros((1, 3)))[..., :3, :]
-        cam = Cameras(
-            camera_to_worlds=torch.from_numpy(np.ascontiguousarray(c2w)),
-            fx=torch.tensor([0.9 * res]), fy=torch.tensor([0.9 * res]),
-            cx=torch.tensor([res / 2.0]), cy=torch.tensor([res / 2.0]),
-            width=res, height=res, camera_type=int(CameraType.PERSPECTIVE),
-        ).to(self.model.device)
-        return cam.generate_rays(0)
+        with span("viewer.camera_rays"):
+            az, el = np.deg2rad(_q(q, "az", 0)), np.deg2rad(_q(q, "el", 20))
+            dist = _q(q, "dist", 1.2)
+            res = self.resolution
+            pos = dist * np.array([np.cos(az) * np.cos(el), np.sin(az) * np.cos(el), np.sin(el)])
+            c2w = look_at_target(pos[None], np.zeros((1, 3)))[..., :3, :]
+            cam = Cameras(
+                camera_to_worlds=torch.from_numpy(np.ascontiguousarray(c2w)),
+                fx=torch.tensor([0.9 * res]), fy=torch.tensor([0.9 * res]),
+                cx=torch.tensor([res / 2.0]), cy=torch.tensor([res / 2.0]),
+                width=res, height=res, camera_type=int(CameraType.PERSPECTIVE),
+            ).to(self.model.device)
+            return cam.generate_rays(0)
 
     def _render(self, rb):
         from neusky_torch.engine.eval_loop import render_camera
@@ -140,36 +143,40 @@ class ViewerState:
         from neusky_torch.engine.render_features import render_shadow_map
         from neusky_torch.utils.viz import apply_colormap, apply_depth_colormap
 
-        mode = q.get("mode", ["rgb"])[0]
-        res = self.resolution
-        rb = self._camera_rays(q)
-        with self.lock:
-            if mode == "shadow_map":
-                out = render_shadow_map(self.model, self.params, rb, azimuth_deg=_q(q, "saz", 45),
-                                        elevation_deg=_q(q, "sel", 45), threshold=_q(q, "thr", 0.5),
-                                        sigmoid_scale=_q(q, "sig", 50))
-                return apply_colormap(out["shadow_map"].reshape(res, res))
-            if mode in ("ddf_depth", "ddf_overlay"):
-                r = self.model.config.ddf_radius
-                with torch.inference_mode():
-                    o = rb.origins / torch.clamp(torch.linalg.norm(rb.origins, dim=-1, keepdim=True), min=1e-6) * r
-                    dd = self.model.ddf.apply(self.params["ddf_field"], o, rb.directions)["expected_termination_dist"]
-                ddf_img = apply_depth_colormap(dd.cpu().numpy().reshape(res, res, 1), near_plane=0.0, far_plane=2 * r)
-                if mode == "ddf_depth":
-                    return ddf_img
-                # the DDF's depth blended over the scene render
-                return 0.5 * self._render(rb)["rgb"].reshape(res, res, 3) + 0.5 * np.asarray(ddf_img)
-            outs = self._render(rb)
-            if mode == "rgb":
-                return outs["rgb"].reshape(res, res, 3)
-            if mode == "albedo":
-                return outs["albedo"].reshape(res, res, 3)
-            if mode == "normal":
-                return (outs["normal"].reshape(res, res, 3) + 1) / 2
-            if mode == "depth":
-                return apply_depth_colormap(outs["depth"].reshape(res, res, 1),
-                                            accumulation=outs["accumulation"].reshape(res, res, 1))
-            return apply_colormap(outs["accumulation"].reshape(res, res))
+        with span("viewer.frame"):
+            mode = q.get("mode", ["rgb"])[0]
+            res = self.resolution
+            rb = self._camera_rays(q)
+            with self.lock:
+                if mode == "shadow_map":
+                    out = render_shadow_map(self.model, self.params, rb, azimuth_deg=_q(q, "saz", 45),
+                                            elevation_deg=_q(q, "sel", 45), threshold=_q(q, "thr", 0.5),
+                                            sigmoid_scale=_q(q, "sig", 50))
+                    return apply_colormap(out["shadow_map"].reshape(res, res))
+                if mode in ("ddf_depth", "ddf_overlay"):
+                    r = self.model.config.ddf_radius
+                    with torch.inference_mode():
+                        o = rb.origins / torch.clamp(torch.linalg.norm(rb.origins, dim=-1, keepdim=True),
+                                                     min=1e-6) * r
+                        dd = self.model.ddf.apply(self.params["ddf_field"], o,
+                                                  rb.directions)["expected_termination_dist"]
+                    ddf_img = apply_depth_colormap(dd.cpu().numpy().reshape(res, res, 1), near_plane=0.0,
+                                                   far_plane=2 * r)
+                    if mode == "ddf_depth":
+                        return ddf_img
+                    # the DDF's depth blended over the scene render
+                    return 0.5 * self._render(rb)["rgb"].reshape(res, res, 3) + 0.5 * np.asarray(ddf_img)
+                outs = self._render(rb)
+                if mode == "rgb":
+                    return outs["rgb"].reshape(res, res, 3)
+                if mode == "albedo":
+                    return outs["albedo"].reshape(res, res, 3)
+                if mode == "normal":
+                    return (outs["normal"].reshape(res, res, 3) + 1) / 2
+                if mode == "depth":
+                    return apply_depth_colormap(outs["depth"].reshape(res, res, 1),
+                                                accumulation=outs["accumulation"].reshape(res, res, 1))
+                return apply_colormap(outs["accumulation"].reshape(res, res))
 
 
 def png_response(img: np.ndarray, size) -> bytes:
