@@ -6,6 +6,15 @@ a normalised log-HDR domain.  Decoders (``conditioning``): ``Attention``
 driven by the flattened latent tokens) and ``Concat`` (a SIREN on the
 direction features and the flattened tokens).
 
+The ``Attention`` decoder reads each direction's D latent tokens, [M, D, 4],
+on the transformer decoder's folded path (``nets/transformer.py``; taken
+whenever D > 1): the tokens are normalised once, as their factors, and
+no block embeds or projects them, the LayerNorm and the key and value
+kernels being folded onto the direction's query.  It is the same function
+as the explicit blocks, equal in float64 to round-off and as close to the
+float64 answer in float32, so the sky decoded, and the latents', scales'
+and rotation's gradients through it, are unchanged.
+
 The decoder is frozen in NeuSky (``fixed_decoder=True``): its parameters
 get ``requires_grad_(False)`` while latents and scales keep gradients.
 Parameters (flax tree): ``{"params": {"decoder": ...}}`` with

@@ -18,6 +18,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from neusky_torch.nets.transformer import FOLDED_KV
 from neusky_torch.utils import profiling
 
 REPO = Path(__file__).resolve().parent.parent
@@ -85,7 +86,9 @@ def _children(table, path):
 def test_tracing_off_records_nothing(monkeypatch):
     """Off (the default), a span is one shared no-op context, a training
     run creates no event and opens no profiler range, and the table holds
-    what ``time_function`` alone puts there."""
+    what ``time_function`` alone puts there, and the counters that count
+    with tracing off at no path: on the CPU, the transformer decoder's
+    folded calls (the sky decoded twice a step)."""
     assert not profiling.enabled()
     profiling.reset()
     made = []
@@ -102,7 +105,7 @@ def test_tracing_off_records_nothing(monkeypatch):
     snap = profiling.snapshot()
     assert not made
     assert list(profiling._TIMINGS) == [work.__qualname__] == list(snap["host"])
-    assert snap["counters"] == {}
+    assert snap["counters"] == {FOLDED_KV: {"": 4}}
     assert all(t == {"samples": 0, "spans": {}} for t in snap["device"].values())
 
 
