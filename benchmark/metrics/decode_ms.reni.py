@@ -1,0 +1,10 @@
+"""Device milliseconds a RENI training step spends in ``reni_step/decode``
+(z = mu + eps * sigma, the SO(2) featurisation and the decoder's forward):
+the median over the window's sampled replays, from the program's own
+device span."""
+
+from benchmark.metrics._program import replay_span_ms
+
+
+def read(record):
+    return replay_span_ms(record, "reni_step/decode")

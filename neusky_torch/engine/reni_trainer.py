@@ -21,6 +21,17 @@ replay (``neusky_torch/parallel/graphs.py``), as JAX scans them in one jit
 (``neusky_tpu/engine/reni_trainer.py:174``, ``:274``): the draws are made
 before the replays, and the host reads the losses only at log records and
 a fit's PSNRs once at its end.  ``graphed=False`` runs them eagerly.
+
+Tracing (``neusky_torch/utils/profiling.py``, on after ``profiling.enable()``):
+host spans ``reni.step`` (a :meth:`RENITrainer.train_step` call: the
+static copies and the replay's launch) and ``reni.draws`` (:meth:`RENITrainer.
+draw`); a step's device span ``reni_step``, timed on every replay, with
+``reni_step/decode`` (z = μ + ε·σ, the featurisation and the decoder's
+forward), ``reni_step/loss`` (the reconstruction and the KL),
+``reni_step/backward`` and ``reni_step/adam``; and the counter
+``reni.pixels``, the P (image, pixel) pairs of each step that ran, made
+again on each replay.  With tracing off a step's graph has no more nodes
+than without the spans.
 """
 
 from __future__ import annotations
@@ -37,8 +48,11 @@ from neusky_torch.fields.reni import RENIField, RENIFieldConfig
 from neusky_torch.parallel.graphs import CapturedStep, use_graph
 from neusky_torch.sampling.illumination import EquirectangularSampler
 from neusky_torch.tree import tree_leaves, tree_map
+from neusky_torch.utils import profiling
+from neusky_torch.utils.profiling import span
 
 OPTAX_ADAM_EPS = 1e-8  # optax.adam's default
+PIXELS = "reni.pixels"  # counter: (image, pixel) pairs of the training steps that ran
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,10 +123,11 @@ class RENITrainer:
         """One step's draws from the trainer's generator."""
         c = self.config
         g, dev, p = self.generator, self.device, c.pixels_per_step
-        d = {"img": torch.randint(0, self.num_images, (p,), generator=g, device=dev),
-             "pix": torch.randint(0, self.directions.shape[0], (p,), generator=g, device=dev)}
-        if c.variational:
-            d["eps"] = torch.randn((p, c.field.latent_dim, 3), generator=g, device=dev)
+        with span("reni.draws"):
+            d = {"img": torch.randint(0, self.num_images, (p,), generator=g, device=dev),
+                 "pix": torch.randint(0, self.directions.shape[0], (p,), generator=g, device=dev)}
+            if c.variational:
+                d["eps"] = torch.randn((p, c.field.latent_dim, 3), generator=g, device=dev)
         return d
 
     def loss(self, draws: Dict[str, torch.Tensor]):
@@ -120,27 +135,36 @@ class RENITrainer:
         with its own latent on the decoder's per-sample [P, D, 3] path."""
         c, p = self.config, self.params
         img, pix = draws["img"].long(), draws["pix"].long()
-        if c.variational:
-            z = p["latents"][img] + draws["eps"] * torch.exp(0.5 * p["logvar"][img])
-            kl = -0.5 * torch.mean(1.0 + p["logvar"] - p["latents"] ** 2 - torch.exp(p["logvar"]))
-        else:
+        with span("decode"):
             z = p["latents"][img]
-            kl = torch.mean(p["latents"] ** 2)
-        pred = self.field.apply(p["decoder"], self.directions[pix], z)["rgb"]
-        recon = torch.mean((pred - self.field.normalise(self.targets[img, pix])) ** 2)
-        return recon + c.kl_weight * kl, {"recon": recon, "kl": kl}
+            if c.variational:
+                z = z + draws["eps"] * torch.exp(0.5 * p["logvar"][img])
+            pred = self.field.apply(p["decoder"], self.directions[pix], z)["rgb"]
+        with span("loss"):
+            if c.variational:
+                kl = -0.5 * torch.mean(1.0 + p["logvar"] - p["latents"] ** 2 - torch.exp(p["logvar"]))
+            else:
+                kl = torch.mean(p["latents"] ** 2)
+            recon = torch.mean((pred - self.field.normalise(self.targets[img, pix])) ** 2)
+            total = recon + c.kl_weight * kl
+        return total, {"recon": recon, "kl": kl}
 
     def _train_step(self, draws) -> Dict[str, torch.Tensor]:
-        self.optimizer.zero_grad()
-        total, aux = self.loss(draws)
-        total.backward()
-        self.optimizer.step()
-        return {"recon": aux["recon"].detach(), "kl": aux["kl"].detach(), "total": total.detach()}
+        with span("reni_step", self.device):
+            profiling.count(PIXELS, draws["img"].shape[0])
+            self.optimizer.zero_grad()
+            total, aux = self.loss(draws)
+            with span("backward"):
+                total.backward()
+            with span("adam"):
+                self.optimizer.step()
+            return {"recon": aux["recon"].detach(), "kl": aux["kl"].detach(), "total": total.detach()}
 
     def train_step(self, draws) -> Dict[str, torch.Tensor]:
         """One update from one step's draws (:meth:`draw`) → its detached
         ``recon``, ``kl`` and ``total``: a graph replay on the card."""
-        return self._step_fn(self.params, None, draws)
+        with span("reni.step"):
+            return self._step_fn(self.params, None, draws)
 
     def run(self, num_steps: Optional[int] = None, log_every: int = 500, log_fn=None,
             draws: Optional[Sequence[dict]] = None) -> List[dict]:
