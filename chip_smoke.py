@@ -20,7 +20,13 @@ captured with their collectives:
    shapes the main path gives it (K1: all levels of each of the joint
    step's seven differentiated hash-grid encodes, indices from
    ``_all_iw``), with CUDA-event timings of the kernel, the plain version
-   and one library call, and the bound;
+   and one library call, and the bound; the fused DDF forward
+   (``ddf_film_forward``) through the model's dispatch at a joint step's
+   260,096 query rows in 16,384-row launches and a 96 × 96 viewer frame's
+   2,340,864 in one, its launches and ``ddf.fused_rows`` counted, each
+   path's worst and median gap to a float64 answer (the fused at most
+   twice the plain float32 query's), timed beside the plain query in the
+   same chunks and in one call;
 3. the port's training step on the card against the same step on the CPU
    (plain versions), on a small input: the scene step, then the joint step
    (DDF visibility, DDF fit, level-set loss; the canonical DDF at 5×256);
@@ -36,7 +42,8 @@ captured with their collectives:
    rendered against the SDF, 256 sky rays) trained 4 steps through
    ``Trainer``.  In phases 4 and 5 each kernel's launch count is zeroed
    just before the path and read just after, and must be its launches per
-   step (K1 once per differentiated encode: 4 scene, 7 joint) every step;
+   step (K1 once per differentiated encode: 4 scene, 7 joint; the fused
+   DDF forward 0 scene, 16 launches over 260,096 rows joint) every step;
    one more step keeps the inputs K1 takes there, and K1 is held against
    its plain version and timed on them; one more step runs under
    ``torch.profiler`` (device time by kind);
@@ -191,7 +198,8 @@ captured with their collectives:
    allocated and reserved memory (the allocator's cache emptied first) and
    K1 launches (0);
 18. one JSON line listing every kernel (K1 per step of phase 12's split
-   step, on its own inputs, with their shapes), the card line, and the
+   step, on its own inputs, with their shapes; the fused DDF forward per
+   joint step of phase 5 and a viewer frame, from phase 2), the card line, and the
    final ``{"ok": true, "device": ...}`` line.
 
 ``split_ab()`` is a separate command: the split and the fused step in
@@ -245,7 +253,7 @@ from neusky_torch.engine.trainer import Trainer, TrainerConfig
 from neusky_torch.models.neusky import NeuSkyModel, visibility_query_directions
 from neusky_torch.models.losses import ddf_sky_ray_loss
 from neusky_torch.models.pipeline import batch_sky_bundle, draw_ddf_fit, draw_step, train_loss_fn
-from neusky_torch.ops import hashgrid, hashgrid_cuda as k1
+from neusky_torch.ops import ddf_film_cuda, hashgrid, hashgrid_cuda as k1
 from neusky_torch.ops.hashgrid import HashGridEncoding
 from neusky_torch.parallel import mesh as mesh_mod
 from neusky_torch.parallel.launch import run_ranks
@@ -256,6 +264,7 @@ from neusky_torch.utils.profiling import count_visibility_queries
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
 STEPS = 4  # joint path
 SCENE_STEPS = 4
 # ~10 ms at the H100's clock: longer than the host takes to queue one
@@ -277,7 +286,7 @@ def check(ok: bool, what) -> None:
 # phase 1: build
 
 
-KERNEL_BUILDS = {k1.KERNEL_NAME: k1.build}
+KERNEL_BUILDS = {k1.KERNEL_NAME: k1.build, ddf_film_cuda.KERNEL_NAME: ddf_film_cuda.build}
 
 
 def build_all():
@@ -491,6 +500,116 @@ def check_k1_main_path_inputs(model_cfg, pipeline_cfg, n_rays: int, captured):
     return [measure_k1(names[tuple(rows.shape)] + "/main_path", rows, vals, t, 1) for rows, vals, t in captured]
 
 
+def ddf_query_rows(cfg, n_rays: int) -> int:
+    """The DDF visibility query's rows a step of ``n_rays`` rays: every
+    ray at each queried light direction (0 without DDF visibility)."""
+    if cfg.ddf is None or not cfg.use_visibility:
+        return 0
+    return n_rays * visibility_query_directions(
+        cfg, IcosahedronSampler(cfg.num_illumination_directions).actual_num_directions)
+
+
+def ddf_film_bound_ms(rows: int, packed) -> float:
+    """Least time of the fused DDF forward over ``rows``: per row the fp32
+    FMAs of the mapping network, its heads and the output layer on the CUDA
+    cores, and the FiLM layers' bf16 MACs on the tensor cores."""
+    w, e = ddf_film_cuda.WIDTH, ddf_film_cuda.ENC_DIM
+    nm, nf = packed.mapping_layers, packed.film_layers
+    fp32 = e * w + (nm - 1) * w * w + w * 2 * nf * w + w
+    bf16 = e * w + (nf - 1) * w * w
+    return rows * (2.0 * fp32 / FP32_OPS_PER_S + 2.0 * bf16 / BF16_OPS_PER_S) * 1e3
+
+
+def ddf_film_f64(net, origins, local, scale: float, chunk: int = 131072) -> torch.Tensor:
+    """The canonical FiLM-SIREN DDF in float64, the FiLM layers' inputs
+    rounded to bf16 as the recipe rounds them: the answer both float32
+    paths are held to."""
+    from neusky_torch.ops.encodings import nerf_encoding
+
+    enc = lambda v: torch.cat([v, nerf_encoding(v, 2, 0.0, 2.0)], dim=-1)  # noqa: E731
+    mp = {k: v.double() for k, v in net["MappingNetwork_0"].items()}
+    nm, nf = ddf_film_cuda.layer_counts(net)
+    w = ddf_film_cuda.WIDTH
+    outs = []
+    for s in range(0, origins.shape[0], chunk):
+        x = enc(origins[s:s + chunk].double())
+        for i in range(nm):
+            x = torch.nn.functional.leaky_relu(x @ mp[f"kernel_{i}"] + mp[f"bias_{i}"], 0.2)
+        heads = x @ mp["kernel_out"] + mp["bias_out"]
+        h = enc(local[s:s + chunk].double())
+        for i in range(nf):
+            lin = h.bfloat16().double() @ net[f"film_kernel_{i}"].bfloat16().double() + net[f"film_bias_{i}"].double()
+            f, ph = heads[:, i * w:(i + 1) * w], heads[:, (nf + i) * w:(nf + i + 1) * w]
+            h = torch.sin((15.0 * f + 30.0) * lin + ph)
+        outs.append(torch.sigmoid((h @ net["out_kernel"].double() + net["out_bias"].double())[:, 0]) * scale)
+    return torch.cat(outs)
+
+
+def check_ddf_film(cfg, n_rays: int, frame_rays: int = 96 * 96):
+    """The fused DDF forward (``ddf_film_forward``) through the model's own
+    dispatch (``NeuSkyModel._ddf_query``) on seeded weights of ``cfg``'s
+    DDF, at a training step's rows (``n_rays`` rays, one launch a chunk, as
+    the training chunks' forward runs it) and a 96 × 96 viewer frame's (one
+    launch): launches and ``ddf.fused_rows`` counted, each path's worst and
+    median gap to the float64 answer (the fused path's at most twice the
+    plain float32 path's), then CUDA-event times of the kernel, the plain
+    query in the same chunks (no autograd: the checkpoint's first pass and
+    the viewer's path before the kernel), the plain query in one call, and
+    the bound."""
+    model = NeuSkyModel(cfg, device="cuda")
+    check(model._fuses_ddf(torch.empty(0, 3, device="cuda"), True),
+          "the recipe's DDF does not take the fused kernel")
+    params = model.ddf.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    net = params["params"]["field"]["net"]
+    packed = ddf_film_cuda.pack(net)
+    chunk = cfg.visibility_query_chunk
+    g = torch.Generator(device="cuda").manual_seed(1)
+    res = {}
+    for label, rows in (("step", ddf_query_rows(cfg, n_rays)), ("frame", ddf_query_rows(cfg, frame_rays))):
+        # origins on the DDF sphere, world directions into it
+        o = torch.nn.functional.normalize(torch.randn((rows, 3), generator=g, device="cuda"), dim=-1)
+        o = o * cfg.ddf_radius
+        d = torch.nn.functional.normalize(torch.randn((rows, 3), generator=g, device="cuda"), dim=-1)
+        d = torch.where((d * o).sum(-1, keepdim=True) > 0, -d, d)
+        fused_call = model.ddf.fused_query(params)
+        plain_call = lambda oo, dd: model.ddf.apply(params, oo, dd)["expected_termination_dist"]  # noqa: E731
+        in_chunks = lambda fn: torch.cat([fn(o[s:s + chunk], d[s:s + chunk])  # noqa: E731
+                                          for s in range(0, rows, chunk)])
+        with torch.no_grad():
+            ddf_film_cuda.launches[ddf_film_cuda.KERNEL_NAME] = 0
+            ddf_film_cuda.launches[ddf_film_cuda.FUSED_ROWS] = 0
+            fused = in_chunks(fused_call) if label == "step" else model._ddf_query(params, o, d)
+            torch.cuda.synchronize()
+            launches = ddf_film_cuda.launches[ddf_film_cuda.KERNEL_NAME]
+            counted = ddf_film_cuda.launches[ddf_film_cuda.FUSED_ROWS]
+            want = -(-rows // chunk) if label == "step" else 1
+            check(launches == want and counted == rows,
+                  f"ddf_film_forward {label}: {launches} launches and {counted} rows, expected {want} and {rows}")
+            plain = in_chunks(plain_call)
+            exact = ddf_film_f64(net, o, model.ddf.local_directions(o, d), model.ddf.field.distance_scale)
+            gaps = {k: (v.double() - exact).abs() for k, v in (("plain", plain), ("fused", fused))}
+            worst = {k: float(v.max()) for k, v in gaps.items()}
+            median = {k: float(v.median()) for k, v in gaps.items()}
+            check(0 < worst["plain"] and worst["fused"] <= 2.0 * worst["plain"]
+                  and median["fused"] <= 2.0 * median["plain"],
+                  f"ddf_film_forward {label}: gaps to float64 worst {worst}, median {median}")
+            del gaps, exact, plain, fused
+            iters = 20 if label == "step" else 5
+            row = dict(case=label, rows=rows, launches=want, counted_rows=counted, worst_gap=worst,
+                       median_gap=median, max_abs_err=worst["fused"],
+                       ms=time_ms(lambda: in_chunks(fused_call) if label == "step" else fused_call(o, d),
+                                  iters=iters, warmup=1),
+                       plain_ms=time_ms(lambda: in_chunks(plain_call), iters=iters, warmup=1),
+                       bound_ms=ddf_film_bound_ms(rows, packed))
+            if label == "step":
+                row["library_ms"] = time_ms(lambda: plain_call(o, d), iters=iters, warmup=1)
+        log("ddf_film_forward case " + json.dumps(row))
+        res[label] = row
+        del o, d
+        torch.cuda.empty_cache()
+    return res
+
+
 # ---------------------------------------------------------------------------
 # the configuration
 
@@ -654,11 +773,14 @@ def check_step_cuda_vs_cpu(joint: bool, knobs=None, sdf_query_chunk: int = 0, va
 # phases 4 and 5: the scene path and the main (joint) path
 
 
-def run_path(label: str, cfg, pcfg, steps: int, card: str, require_groups=()):
+def run_path(label: str, cfg, pcfg, steps: int, card: str, require_groups=(), fused_ddf: bool = False):
     """``steps`` training steps of ``cfg`` through ``Trainer`` on the
     synthetic scene (8 cameras, 64×64; 8 images × 128 rays, 256 sky rays),
-    K1's count zeroed before and read after, then one step keeping K1's
-    inputs and one profiled step."""
+    K1's count and the fused DDF forward's launches and rows zeroed before
+    and read after (with ``fused_ddf`` each step's visibility rows in one
+    launch a chunk, else none), then one step keeping K1's inputs and one
+    profiled step.  Returns K1's launches, its inputs and the DDF kernel's
+    (launches, rows)."""
     scene = generate_synthetic_scene(SyntheticSceneConfig(num_cameras=8, width=64, height=64))
     dm = DataManager(
         DataManagerConfig(pixel_sampler=PixelSamplerConfig(images_per_batch=8, rays_per_image=128),
@@ -676,30 +798,42 @@ def run_path(label: str, cfg, pcfg, steps: int, card: str, require_groups=()):
     n_rays = 8 * 128
     n_counted = trainer._count_rays(dm.next_train(0))
     expected = expected_launches_per_step(cfg, pcfg)
+    ddf_rows = ddf_query_rows(cfg, n_rays) if fused_ddf else 0
+    ddf_expected = (-(-ddf_rows // cfg.visibility_query_chunk), ddf_rows)
     log(f"{label} path: {n_rays} scene rays/step ({n_counted} counted by the trainer), "
-        f"{model.num_directions} light directions, expecting {expected} K1 launches/step")
+        f"{model.num_directions} light directions, expecting {expected} K1 launches/step and "
+        f"{ddf_expected[0]} {ddf_film_cuda.KERNEL_NAME} launches over {ddf_rows} rows a step")
 
+    ddf_counts = lambda: (ddf_film_cuda.launches[ddf_film_cuda.KERNEL_NAME],  # noqa: E731
+                          ddf_film_cuda.launches[ddf_film_cuda.FUSED_ROWS])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     k1.launches[k1.KERNEL_NAME] = 0
-    times, per_step = [], []
+    ddf_film_cuda.launches[ddf_film_cuda.KERNEL_NAME] = 0
+    ddf_film_cuda.launches[ddf_film_cuda.FUSED_ROWS] = 0
+    times, per_step, ddf_per_step = [], [], []
     for s in range(steps):
-        before = k1.launches[k1.KERNEL_NAME]
+        before, ddf_before = k1.launches[k1.KERNEL_NAME], ddf_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rec = trainer.run(1)[-1]
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         per_step.append(k1.launches[k1.KERNEL_NAME] - before)
+        ddf_per_step.append(tuple(a - b for a, b in zip(ddf_counts(), ddf_before)))
         losses = {k: v for k, v in rec.items() if k.endswith("_loss") or k == "ddf_depth_psnr"}
         log(f"{label} step {s}: {dt * 1e3:.1f} ms, {n_rays / dt:.1f} scene rays/s, {n_counted / dt:.1f} "
-            f"counted rays/s ({card}); K1 launches {per_step[-1]}; " + json.dumps(losses))
+            f"counted rays/s ({card}); K1 launches {per_step[-1]}; {ddf_film_cuda.KERNEL_NAME} launches, rows "
+            f"{ddf_per_step[-1]}; " + json.dumps(losses))
         for k, v in rec.items():
             if isinstance(v, float) and not math.isfinite(v):
                 raise AssertionError(f"{label} step {s}: {k} = {v}")
         times.append(dt)
     launches = k1.launches[k1.KERNEL_NAME]
+    ddf_total = ddf_counts()
     check(per_step == [expected] * steps, f"{label}: K1 launches per step {per_step}, expected {expected}")
+    check(ddf_per_step == [ddf_expected] * steps,
+          f"{label}: {ddf_film_cuda.KERNEL_NAME} (launches, rows) per step {ddf_per_step}, expected {ddf_expected}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     # step 0 runs eagerly and step 1 captures the step: the replays are steady
     steady = float(np.mean(times[2:]))
@@ -721,7 +855,7 @@ def run_path(label: str, cfg, pcfg, steps: int, card: str, require_groups=()):
     with eager_steps(trainer):
         captured = capture_k1_inputs(lambda: trainer.run(1))
     profile_call(lambda: trainer.run(1), steady, card, f"{label} step")
-    return launches, captured
+    return launches, captured, ddf_total
 
 
 @contextlib.contextmanager
@@ -3260,11 +3394,13 @@ def main() -> int:
 
     joint_cfg, joint_pcfg = neusky_model_config(8, 2), neusky_pipeline_config()
     check_k1(joint_cfg, joint_pcfg, 8 * 128)
+    ddf_cases = check_ddf_film(joint_cfg, 8 * 128)
+    release()
     check_step_cuda_vs_cpu(joint=False)
     check_step_cuda_vs_cpu(joint=True)
     run_path("scene", scene_config(), neusky_pipeline_config(), SCENE_STEPS, card)
-    main_launches, captured = run_path("joint", joint_cfg, joint_pcfg, STEPS, card,
-                                       require_groups=("ddf_field", "visibility_sigmoid"))
+    main_launches, captured, ddf_main = run_path("joint", joint_cfg, joint_pcfg, STEPS, card,
+                                                 require_groups=("ddf_field", "visibility_sigmoid"), fused_ddf=True)
     # the kernels line: K1 per joint step, on the inputs the main path gave it
     sites = check_k1_main_path_inputs(joint_cfg, joint_pcfg, 8 * 128, captured)
     del captured
@@ -3318,6 +3454,23 @@ def main() -> int:
         "bound_by": max(sites, key=lambda r: r["bound_ms"] * r["launches_per_step"])["bound_by"],
         "library_ms": per_step("library_ms"),
         "shapes": [[r["L"], r["M"]] for r in sites],
+    }, {
+        "name": ddf_film_cuda.KERNEL_NAME,
+        "route": "cuda",
+        "source": "neusky_torch/csrc/ddf_film_forward.cu",
+        "replaces": "none: neusky_tpu/nets/siren.py::FiLMSiren under XLA",
+        # phase 5's joint step (the neusky recipe's DDF): its launches and
+        # rows in STEPS steps; times per step, over one step's chunks
+        "launches": ddf_main[0],
+        "rows": ddf_main[1],
+        "max_abs_err": max(r["max_abs_err"] for r in ddf_cases.values()),
+        "ms": ddf_cases["step"]["ms"],
+        "plain_ms": ddf_cases["step"]["plain_ms"],
+        "bound_ms": ddf_cases["step"]["bound_ms"],
+        "bound_by": "fp32 FMA",
+        "library_ms": ddf_cases["step"]["library_ms"],
+        "shapes": [[ddf_cases["step"]["rows"], 3]],
+        "frame": {k: ddf_cases["frame"][k] for k in ("rows", "launches", "ms", "plain_ms", "bound_ms")},
     }]
     log(json.dumps({"kernels": kernels}))
     log(bench.card_line())

@@ -23,7 +23,7 @@ from pathlib import Path
 import torch
 
 from neusky_torch.configs.neusky_config import neusky_model_config
-from neusky_torch.ops import hashgrid_cuda as k1
+from neusky_torch.ops import cuda_build, hashgrid_cuda as k1
 from neusky_torch.ops.hashgrid import HashGridEncoding
 
 SOURCE = Path(__file__).resolve().with_suffix(".cu")
@@ -33,11 +33,11 @@ HOLD_CYCLES = 20_000_000  # keeps the card busy while a timing loop is queued
 
 def build() -> ctypes.CDLL:
     tag = hashlib.sha1(SOURCE.read_bytes()).hexdigest()[:12]
-    out = k1.BUILD_DIR / f"libk1_dense_paths_{tag}.so"
+    out = cuda_build.BUILD_DIR / f"libk1_dense_paths_{tag}.so"
     if not out.exists():
-        k1.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        subprocess.run([k1._nvcc(), *k1.NVCC_FLAGS, "-o", str(out), str(SOURCE)], check=True)
-    sass = subprocess.run([str(Path(k1._nvcc()).with_name("cuobjdump")), "-sass", str(out)],
+        cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(out), str(SOURCE)], check=True)
+    sass = subprocess.run([str(Path(cuda_build.nvcc()).with_name("cuobjdump")), "-sass", str(out)],
                           capture_output=True, text=True, check=True).stdout
     for line in sass.splitlines():
         if any(op in line for op in ("ATOM", "RED")):

@@ -22,6 +22,9 @@ FiLM precision and layout (``nets/siren.py``): ``use_bf16_compute`` runs
 the FiLM layers' products in bf16, ``use_bf16_mapping`` the mapping
 network's products and its (frequencies, phases) outputs, and
 ``film_per_layer_heads`` gives each FiLM layer its own mapping head.
+The canonical FiLM field (:meth:`DirectionalDistanceField.film_kernel_takes`)
+also has a fused forward, ``ops/ddf_film_cuda.py``, which the visibility
+query takes on the card (``models/neusky.py::NeuSkyModel._fuses_ddf``).
 
 Parameters (flax tree): ``{"net": {...}, "pos_hash_table": [L, F, T],
 "dir_hash_table": [L, F, T]}``, the tables present with their encodings.
@@ -35,6 +38,7 @@ import torch
 
 from neusky_torch.nets.siren import FiLMSiren, Siren
 from neusky_torch.nets.transformer import TransformerDecoder
+from neusky_torch.ops.ddf_film_cuda import WIDTH
 from neusky_torch.ops.encodings import nerf_encoding, nerf_encoding_dim, sh_encoding
 from neusky_torch.ops.hashgrid import HashGridConfig, HashGridEncoding
 
@@ -78,6 +82,7 @@ class DirectionalDistanceField:
         c = config
         self.config = config
         self.ddf_radius = ddf_radius
+        self.distance_scale = 2.0 * ddf_radius  # the sigmoid's (0, 1) to distances
         self.pos_hash = HashGridEncoding(c.hash) if c.position_encoding_type == "hash" else None
         self.dir_hash = HashGridEncoding(c.hash) if c.direction_encoding_type == "hash" else None
         self.n_depth = c.num_dirac_components
@@ -96,6 +101,20 @@ class DirectionalDistanceField:
                                           out_features)
         else:
             raise ValueError(c.conditioning)
+
+    def film_kernel_takes(self) -> bool:
+        """Whether ``ops/ddf_film_cuda.py``'s fused forward computes this
+        field: FiLM conditioning at width 256 (the FiLM layers and the
+        mapping network), NeRF position and direction encodings, bf16 FiLM
+        products, an fp32 mapping network with one shared head, and a single
+        sigmoid distance out."""
+        c = self.config
+        return (c.conditioning == "FiLM" and c.position_encoding_type == "nerf"
+                and c.direction_encoding_type == "nerf" and c.ddf_type == "ddf"
+                and not c.predict_probability_of_hit and c.termination_output_activation == "sigmoid"
+                and c.use_bf16_compute and not c.use_bf16_mapping and not c.film_per_layer_heads
+                and c.hidden_features == WIDTH and c.mapping_features == WIDTH
+                and c.hidden_layers >= 1 and c.mapping_layers >= 1)
 
     def _enc_dim(self, kind: str) -> int:
         if kind == "hash":
@@ -154,7 +173,7 @@ class DirectionalDistanceField:
             exp_dist = torch.sum(torch.softmax(logits, dim=-1) * dists, dim=-1)
         else:
             exp_dist = act(raw[..., 0])
-        out = {"expected_termination_dist": exp_dist * (2.0 * self.ddf_radius)}
+        out = {"expected_termination_dist": exp_dist * self.distance_scale}
         if c.predict_probability_of_hit:
             out["probability_of_hit"] = _ACTIVATIONS[c.probability_of_hit_output_activation](raw[..., -1])
         return out

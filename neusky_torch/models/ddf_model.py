@@ -23,6 +23,7 @@ from neusky_torch.core.spherical import draw_sphere_uniforms, random_points_on_u
 from neusky_torch.device import device_constant
 from neusky_torch.fields.ddf import DDFFieldConfig, DirectionalDistanceField
 from neusky_torch.models import losses as L
+from neusky_torch.ops import ddf_film_cuda
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,9 +94,29 @@ class DDFModel:
     def init(self, generator, device):
         return {"params": {"field": self.field.init(generator, device)}}
 
+    def local_directions(self, origins: torch.Tensor, directions_world: torch.Tensor) -> torch.Tensor:
+        """The field's direction input: world directions in the local frame
+        of each origin on the DDF sphere."""
+        return localise_directions(origins / self.ddf_radius, directions_world)
+
     def apply(self, params, origins: torch.Tensor, directions_world: torch.Tensor) -> dict:
-        local = localise_directions(origins / self.ddf_radius, directions_world)
-        return self.field(params["params"]["field"], origins, local)
+        return self.field(params["params"]["field"], origins, self.local_directions(origins, directions_world))
+
+    def fused_query(self, params) -> Callable:
+        """``(origins, world directions) → expected_termination_dist`` [M]
+        by the fused forward kernel (``ops/ddf_film_cuda.py``), with no
+        autograd.  The weights are packed once, here.  Only for a field the
+        kernel computes: the caller decides where it engages
+        (``models/neusky.py::NeuSkyModel._fuses_ddf``)."""
+        packed = ddf_film_cuda.pack(params["params"]["field"]["net"])
+
+        def query(origins: torch.Tensor, directions_world: torch.Tensor) -> torch.Tensor:
+            with torch.no_grad():
+                local = self.local_directions(origins, directions_world)
+                return ddf_film_cuda.film_forward(packed, origins.contiguous(), local.contiguous(),
+                                                  self.field.distance_scale)
+
+        return query
 
 
 def scene_center_distance_weight(config: DDFModelConfig, origins: torch.Tensor, ddf_radius: float) -> torch.Tensor:

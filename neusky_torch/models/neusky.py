@@ -68,12 +68,13 @@ from neusky_torch.fields.sdf_albedo import SDFAlbedoField, SDFAlbedoFieldConfig
 from neusky_torch.models import losses as L
 from neusky_torch.models.ddf_model import DDFModel, DDFModelConfig
 from neusky_torch.nets.density import neus_alpha
+from neusky_torch.ops import ddf_film_cuda
 from neusky_torch.ops.hashgrid import salt_with_lanes
 from neusky_torch.parallel import collectives
 from neusky_torch.sampling.illumination import IcosahedronSampler
 from neusky_torch.sampling.proposal import ProposalSamplerConfig, proposal_sample
 from neusky_torch.shading.lambertian import blinn_phong_composite, lambertian_composite
-from neusky_torch.tree import tree_map
+from neusky_torch.tree import tree_items, tree_map, unflatten
 from neusky_torch.utils.profiling import span
 
 
@@ -207,6 +208,29 @@ def _chunked_apply(fn, args: Tuple[torch.Tensor, ...], chunk: int, remat_policy:
         run = lambda *a: checkpoint(fn, *a, use_reentrant=False, **kw)  # noqa: E731
     outs = [run(*(a[s:s + chunk] for a in args)) for s in range(0, m, chunk)]
     return {k: torch.cat([o[k] for o in outs], dim=0) for k in outs[0]}
+
+
+class _FusedDDFChunk(torch.autograd.Function):
+    """One ``"full"``-policy visibility chunk whose forward is the fused DDF
+    kernel (:meth:`DDFModel.fused_query`).  It saves the chunk's inputs
+    alone, as the full checkpoint does; its backward recomputes the chunk
+    through the plain query and takes the checkpoint's gradients from it.
+    ``inputs``: the chunk's origins and world directions, then the DDF's
+    parameter leaves, in ``plain``'s order."""
+
+    @staticmethod
+    def forward(ctx, fused, plain, *inputs):
+        ctx.plain = plain
+        ctx.save_for_backward(*inputs)
+        return fused(*inputs[:2])
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[2:])]
+        with torch.enable_grad():
+            grads = iter(torch.autograd.grad(ctx.plain(*inputs), [t for t in inputs if t.requires_grad], g,
+                                             allow_unused=True))
+        return (None, None, *(next(grads) if t.requires_grad else None for t in inputs))
 
 
 def _rows(rays, rows: slice):
@@ -532,13 +556,10 @@ class NeuSkyModel:
         sphere_pts = ray_sphere_intersection(pos_nd, dir_nd, r)
         dist_to_origins = torch.clamp(torch.linalg.norm(sphere_pts - pos_nd, dim=-1), max=2.0 * r)
 
-        ddf_params = params["ddf_field"]
-        ddf_query = lambda o, dd: self.ddf.apply(ddf_params, o, dd)  # noqa: E731
         share = self._dirs_share(d)
         lo, hi = share or (0, d)
         mine = lambda x: x.reshape(n, d, 3)[:, lo:hi].reshape(-1, 3)  # noqa: E731
-        expected = _chunked_apply(ddf_query, (mine(sphere_pts), mine(-dir_nd)), c.visibility_query_chunk,
-                                  c.visibility_remat_policy)["expected_termination_dist"]
+        expected = self._ddf_query(params["ddf_field"], mine(sphere_pts), mine(-dir_nd))
         if share is not None:
             expected = collectives.gather_slots(expected.reshape(n, hi - lo, *expected.shape[1:]), lo, d,
                                                 self.mesh.get_group("dirs")).reshape(-1, *expected.shape[1:])
@@ -589,6 +610,40 @@ class NeuSkyModel:
                                                self.mesh.get_group("dirs")).reshape(-1, *sdf.shape[1:])
             result["sdf_at_termination"] = sdf
         return result
+
+    def _fuses_ddf(self, rows: torch.Tensor, records: bool) -> bool:
+        """Whether the visibility query takes the fused DDF kernel
+        (:meth:`DDFModel.fused_query`): the kernel computes this field
+        (:meth:`DirectionalDistanceField.film_kernel_takes`) at rows like
+        ``rows`` (:func:`~neusky_torch.ops.ddf_film_cuda.takes`), and
+        autograd records nothing or the ``"full"`` policy keeps no activation
+        of a chunk's forward anyway."""
+        return (ddf_film_cuda.takes(rows) and self.ddf.field.film_kernel_takes()
+                and (not records or self.config.visibility_remat_policy == "full"))
+
+    def _ddf_query(self, ddf_params, origins: torch.Tensor, directions: torch.Tensor) -> torch.Tensor:
+        """The DDF's ``expected_termination_dist`` at the visibility's
+        (origin, world direction) rows.  Where it takes the fused kernel
+        (:meth:`_fuses_ddf`): every row in one launch when autograd records
+        nothing, else a :class:`_FusedDDFChunk` each
+        ``visibility_query_chunk`` rows.  Otherwise the plain query in
+        checkpointed chunks (:func:`_chunked_apply`)."""
+        c = self.config
+        leaves = dict(tree_items(ddf_params))
+        records = torch.is_grad_enabled() and any(t.requires_grad for t in (origins, directions, *leaves.values()))
+        if not self._fuses_ddf(origins, records):
+            query = lambda o, dd: self.ddf.apply(ddf_params, o, dd)  # noqa: E731
+            return _chunked_apply(query, (origins, directions), c.visibility_query_chunk,
+                                  c.visibility_remat_policy)["expected_termination_dist"]
+        fused = self.ddf.fused_query(ddf_params)
+        if not records:
+            return fused(origins, directions)
+        names = list(leaves)
+        plain = lambda o, dd, *lv: self.ddf.apply(  # noqa: E731
+            unflatten(dict(zip(names, lv))), o, dd)["expected_termination_dist"]
+        chunk = c.visibility_query_chunk
+        return torch.cat([_FusedDDFChunk.apply(fused, plain, origins[s:s + chunk], directions[s:s + chunk],
+                                               *leaves.values()) for s in range(0, origins.shape[0], chunk)])
 
     def _visibility_threshold(self, params, step) -> Tuple[torch.Tensor, torch.Tensor]:
         """(threshold distance, sigmoid scale) of the occlusion sigmoid:

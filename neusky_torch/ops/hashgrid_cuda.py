@@ -20,24 +20,15 @@ show that its main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 
+from neusky_torch.ops import cuda_build
 from neusky_torch.utils import profiling
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "hashgrid_scatter.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "hashgrid_scatter.cu"
 
 KERNEL_NAME = "hashgrid_scatter_levels"
 launches = profiling.totals  # launches[KERNEL_NAME]
@@ -45,35 +36,16 @@ launches = profiling.totals  # launches[KERNEL_NAME]
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    return str(Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc")
-
-
 def library_path() -> Path:
     """Build output, keyed by the source's hash so an edit rebuilds."""
-    tag = hashlib.sha1(SOURCE.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"libhashgrid_scatter_{tag}.so"
+    return cuda_build.library_path(SOURCE, "hashgrid_scatter")
 
 
 def build(verbose: bool = False) -> Tuple[Path, str]:
     """Compile K1 (no-op if the library for this source exists).  Returns
     (library path, compiler messages — ``-Xptxas -v`` register/spill
     report when ``verbose``)."""
-    out = library_path()
-    if out.exists():
-        return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stderr
+    return cuda_build.build(SOURCE, "hashgrid_scatter", verbose)
 
 
 def _load() -> ctypes.CDLL:

@@ -31,7 +31,8 @@ then gets None).  A call:
 5. returns copies of the graph's static outputs: nothing waits for the
    card unless the caller reads them.
 
-A capture collects garbage first, and a capture that fails raises.  An
+A capture drops the optimizer's gradients and collects garbage first,
+and a capture that fails raises.  An
 optimizer's ``generation`` (``GroupedAdam`` moves it when its state is
 loaded anew; an optimizer without one never moves) makes the next call
 warm up and capture again over the new state tensors.  Calls are
@@ -269,6 +270,13 @@ class CapturedStep:
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         with span("graph.capture"):
+            # the eager call's gradients go first: the step makes its own
+            # (every step function zeroes them before its backward), and
+            # blocks freed only inside the capture would keep the eager
+            # call's segments reserved beside the graph's pool
+            zero_grad = getattr(self.optimizer, "zero_grad", None)
+            if zero_grad is not None:
+                zero_grad()
             # torch.cuda.graph empties the allocator's cache before it
             # captures but no longer collects garbage: the memory pools of
             # graphs in a dead reference cycle would stay reserved, and a

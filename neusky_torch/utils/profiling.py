@@ -491,24 +491,18 @@ def trace_context(logdir: str = "outputs/trace"):
 def count_visibility_queries(model):
     """Count the (point, direction) queries ``model.compute_visibility``
     hands the DDF inside the block (a rank's share on a ``dirs`` mesh
-    axis): ``counts[0]`` of the list it yields."""
-    counts, inside = [0], [False]
-    apply, vis = model.ddf.apply, model.compute_visibility
+    axis), by the plain query or the fused kernel alike, the forward's
+    alone (a checkpoint's recomputation is not a query): ``counts[0]`` of
+    the list it yields."""
+    counts = [0]
+    query = model._ddf_query
 
-    def counted_apply(p, o, d):
-        if inside[0]:
-            counts[0] += o.shape[0]
-        return apply(p, o, d)
+    def counted(p, origins, directions):
+        counts[0] += origins.shape[0]
+        return query(p, origins, directions)
 
-    def counted_vis(*a, **k):
-        inside[0] = True
-        try:
-            return vis(*a, **k)
-        finally:
-            inside[0] = False
-
-    model.ddf.apply, model.compute_visibility = counted_apply, counted_vis
+    model._ddf_query = counted
     try:
         yield counts
     finally:
-        del model.ddf.apply, model.compute_visibility
+        del model._ddf_query
